@@ -1,0 +1,425 @@
+"""Drive the PyTorch port's main path on one NVIDIA card and check it.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from csrc/ (nvcc), calibrates the full-width
+6x1920x1080 rig (global warp, enable_local=False) from a synthetic scene
+made from a seed, stitches frame sets through stitch / stitch_nv12 /
+stitch_out / stitch_batch, and checks each result against the scene and
+against the port's plain versions. Then holds kernel K1 against its plain
+PyTorch version at the main path's shapes and times the path, K1, K1's
+plain version and the PyTorch library call that computes K1's function.
+
+Prints the card's name and power limit, one {"kernels": [...]} line, and
+as its last line {"ok": true, "device": {...}}. Exits non-zero, with no
+result line, when there is no CUDA device or any phase fails.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+import traceback
+
+import numpy as np
+import torch
+
+SEED = 3               # the JAX package's bench.py scene seed
+MIN_PSNR_DB = 40.0     # stitched pano vs the synthetic scene
+MAX_ABS_U8 = 3         # BASELINE.md:22, the reference's CUDA-vs-CPU bound
+K1_ATOL = 1e-3         # K1 vs its plain version, both f32
+REPS = 20
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+F32_FLOPS = 67e12                  # H100 SXM, f32 outside the tensor cores
+K1_SOURCE = "video_stitcher_tpu_torch/csrc/remap_gain.cu"
+K1_REPLACES = "video_stitcher_tpu/ops/remap_strips.py:543"
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def sync_ms(fn, reps=REPS):
+    """Median host-clock ms of fn() between two device synchronisations."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def event_ms(fn, reps=REPS):
+    """Median device ms of fn() between two CUDA events."""
+    fn()                                                   # warm up
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def luma(rgb):
+    """BT.601 video-range luma, the plane NV12 carries at full resolution."""
+    x = np.asarray(rgb, np.float64)
+    return 0.256788 * x[..., 0] + 0.504129 * x[..., 1] \
+        + 0.097906 * x[..., 2] + 16.0
+
+
+def device_profile(fn, reps=5):
+    """torch.profiler over reps calls of fn: (share of the wall time the
+    card spent in kernels, kernels per call, the top kernels by device
+    time). The profiler's own cost lengthens the wall time, so the share
+    is a lower bound."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    from torch.autograd import DeviceType
+    # device-side entries only: an operator's entry repeats the device time
+    # of the kernels it launched
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return (busy_us / wall_us, sum(e.count for e in kernels) / reps,
+            [(e.key[:60], e.self_device_time_total / reps / 1e3, e.count
+              // reps) for e in top])
+
+
+def scene_psnr(pano, scene, valid, of=lambda x: x):
+    """psnr of of(pano) vs of(scene) over the valid central rows (the JAX
+    package's bench.py rule)."""
+    from video_stitcher_tpu_torch.utils.synth import psnr
+    gt = np.moveaxis(scene, 0, -1)
+    h = pano.shape[0]
+    sel = valid[h // 4:3 * h // 4]
+    return psnr(of(pano[h // 4:3 * h // 4][sel]),
+                of(gt[h // 4:3 * h // 4][sel]))
+
+
+def max_abs_u8(a, b) -> int:
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape:
+        raise AssertionError(f"shapes {a.shape} != {b.shape}")
+    return int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
+
+
+FAILED = []
+
+
+def check(cond: bool, what: str) -> None:
+    """Record one check; a failed one fails the run at its end."""
+    log(f"  {'ok' if cond else 'FAILED'}: {what}")
+    if not cond:
+        FAILED.append(what)
+
+
+def edited_maps(maps: torch.Tensor, h: int, w: int):
+    """The calibrated maps with the cases K1 must get right written in:
+    a -1 region, coordinates in (-1, 0), and coordinates just past the
+    right and bottom source edges. Returns (maps, the -1 region)."""
+    m = maps.clone()
+    bh, bw = m.shape[2], m.shape[3]
+    dead = (slice(bh // 4, bh // 4 + bh // 16),
+            slice(bw // 3, bw // 3 + bw // 16))
+    m[:, :, dead[0], dead[1]] = -1.0
+    rows, cols = bh // 32, bw // 4
+
+    def ramp(lo, hi):
+        return torch.linspace(lo, hi, cols, device=m.device)
+    m[:, 0, bh // 2:bh // 2 + rows, :cols] = ramp(-0.999, -0.001)
+    m[:, 1, bh // 2 + 2 * rows:bh // 2 + 3 * rows, :cols] = ramp(-0.999,
+                                                                 -0.001)
+    m[:, 0, bh // 8:bh // 8 + rows, bw // 2:bw // 2 + cols] = ramp(w - 1.5,
+                                                                   w + 0.5)
+    m[:, 1, bh // 8 + 2 * rows:bh // 8 + 3 * rows,
+      bw // 2:bw // 2 + cols] = ramp(h - 1.5, h + 0.5)
+    return m.contiguous(), dead
+
+
+def k1_bound_ms(src, maps, n_out_ch: int, n_out: int):
+    """Least time for K1's work on this card: each input read once, each
+    output written once, over the memory rate; vs ~40 f32 flops a band
+    pixel (tap weights, 4-tap blends, gain, clamp) over the f32 rate."""
+    bh, bw = maps.shape[2], maps.shape[3]
+    nbytes = (src.numel() * src.element_size() + maps.numel() * 4
+              + src.shape[0] * 4 + n_out * n_out_ch * bh * bw * 4)
+    flops = 40.0 * n_out * bh * bw
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from video_stitcher_tpu_torch import StitcherConfig
+    return run(StitcherConfig(enable_local=False), torch.device("cuda"))
+
+
+def run(cfg, dev) -> int:
+    from video_stitcher_tpu_torch import Stitcher, StitcherConfig, _build
+    from video_stitcher_tpu_torch.blend.multiband import blend_bands
+    from video_stitcher_tpu_torch.calib.calibration import plan_geometry
+    from video_stitcher_tpu_torch.ops.color import rgb_to_nv12
+    from video_stitcher_tpu_torch.ops.remap_strips import (
+        remap_strips, remap_strips_plain)
+    from video_stitcher_tpu_torch.ops.resize import resize_planar
+    from video_stitcher_tpu_torch.pipeline.stitcher import (
+        _pack_u8_hwc, blend_f32, warp_bands)
+    from video_stitcher_tpu_torch.utils.synth import make_scene, render_views
+
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {kind} count {torch.cuda.device_count()}")
+
+    log("phase build")
+    t0 = time.perf_counter()
+    built = _build.build()
+    log(f"  build seconds {time.perf_counter() - t0:.3f} per kernel "
+        f"{json.dumps(built)}")
+
+    # ---- main path at full width -------------------------------------
+    log(f"phase main path ({cfg.num_images}x{cfg.input_width}x"
+        f"{cfg.input_height}, enable_local={cfg.enable_local})")
+    geom, _ = plan_geometry(cfg)
+    lay = geom.layout
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    scene = make_scene(lay.pano_w, lay.pano_h, rng)
+    frames = render_views(cfg, geom, scene)
+    frames2 = np.clip(frames.astype(np.int16)
+                      + rng.integers(-12, 13, frames.shape), 0, 255
+                      ).astype(np.uint8)
+    nv12 = rgb_to_nv12(torch.from_numpy(frames)).numpy()
+    log(f"  synthetic rig {time.perf_counter() - t0:.3f} s: frames "
+        f"{frames.shape}, pano {lay.pano_w}x{lay.pano_h}, bands "
+        f"{lay.band_w}x{lay.band_h}, levels {lay.num_bands}")
+
+    st = Stitcher(cfg, device=dev)
+    remap_strips.launches = 0
+    counts = []
+
+    def counted(fn, *args, **kw):
+        before = remap_strips.launches
+        out = fn(*args, **kw)
+        counts.append(remap_strips.launches - before)
+        return out
+
+    t0 = time.perf_counter()
+    st.calibrate(frames)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    log(f"  calibrate {calib_s:.3f} s")
+    panos = [counted(st.stitch, f) for f in (frames, frames2, frames)]
+    panos_nv12 = [counted(st.stitch_nv12, nv12) for _ in range(2)]
+    outs = [counted(st.stitch_out, f) for f in (frames, frames2)]
+    batch = counted(st.stitch_batch, np.stack([frames, frames2]))
+    main_launches = remap_strips.launches
+    log(f"  K1 launches on the main path: {main_launches} "
+        f"(per call {counts})")
+    check(all(c == 1 for c in counts),
+          "K1 launched exactly once per stitch* call")
+    check(main_launches == len(counts) > 0, "the main path ran through K1")
+
+    # ---- what came out ------------------------------------------------
+    log("phase results")
+    valid = st.state.valid_mask.cpu().numpy() > 0
+    p_rgb = scene_psnr(panos[0], scene, valid)
+    p_nv12 = scene_psnr(panos_nv12[0], scene, valid)
+    p_nv12_y = scene_psnr(panos_nv12[0], scene, valid, luma)
+    log(f"  psnr vs scene: stitch {p_rgb:.4f} dB; stitch_nv12 "
+        f"{p_nv12:.4f} dB RGB (4:2:0 chroma), {p_nv12_y:.4f} dB luma")
+    check(panos[0].shape == (lay.pano_h, lay.pano_w, 3)
+          and panos[0].dtype == np.uint8, "pano shape and dtype")
+    check(p_rgb >= MIN_PSNR_DB, f"stitch psnr {p_rgb:.2f} >= {MIN_PSNR_DB}")
+    check(p_nv12_y >= MIN_PSNR_DB,
+          f"stitch_nv12 luma psnr {p_nv12_y:.2f} >= {MIN_PSNR_DB}")
+    check(np.array_equal(panos[0], panos[2]), "stitch is deterministic")
+    two_step = st.output(panos[0])
+    d_out = max_abs_u8(outs[0], two_step)
+    check(outs[0].shape == st.output(panos[1]).shape and d_out <= MAX_ABS_U8,
+          f"stitch_out {outs[0].shape} within {d_out} of output(stitch)")
+    d_batch = max(max_abs_u8(batch[0], panos[0]),
+                  max_abs_u8(batch[1], panos[1]))
+    check(d_batch == 0, "stitch_batch equals per-frame stitch")
+
+    bands = warp_bands(torch.as_tensor(frames, device=dev), st.state, geom)
+    b32 = blend_bands(bands, st.state.weight_pyr, lay, st.state.valid_mask,
+                      "highest").cpu().numpy()
+    b16 = blend_bands(bands, st.state.weight_pyr, lay, st.state.valid_mask,
+                      "bf16").cpu().numpy()
+    from video_stitcher_tpu_torch.utils.synth import psnr
+    p16 = psnr(b16[:, valid], b32[:, valid])
+    d16 = max_abs_u8(np.clip(np.round(b16), 0, 255),
+                     np.clip(np.round(b32), 0, 255))
+    # measured, not gated: the default bf16 storage is the JAX package's
+    # own choice, and the port's bf16 blend equals it bit for bit on the
+    # CPU (tests/test_torch_blend.py)
+    log(f"  bf16 blend storage vs f32 chain: {p16:.4f} dB, u8 max abs "
+        f"{d16}")
+
+    # small rig: the card against the port's plain versions on the host
+    small = StitcherConfig(num_images=6, input_width=320, input_height=180,
+                           enable_local=False)
+    sgeom, _ = plan_geometry(small)
+    srng = np.random.default_rng(7)
+    sscene = make_scene(sgeom.layout.pano_w, sgeom.layout.pano_h, srng)
+    sframes = render_views(small, sgeom, sscene)
+    on_card, on_host = Stitcher(small, device=dev), Stitcher(small,
+                                                             device="cpu")
+    on_card.calibrate(sframes)
+    on_host.calibrate(sframes)
+    d_small = max_abs_u8(on_card.stitch(sframes), on_host.stitch(sframes))
+    check(d_small <= MAX_ABS_U8,
+          f"6x320x180 pano: card within {d_small} of the host plain path")
+
+    # ---- K1 against its plain version at the main path's shapes --------
+    log("phase K1 vs plain")
+    maps, dead = edited_maps(st.state.fused_maps, geom.src_h, geom.src_w)
+    src_u8 = torch.as_tensor(frames, device=dev).permute(0, 3, 1, 2
+                                                         ).contiguous()
+    from video_stitcher_tpu_torch.ops.color import nv12_to_rgb_planar
+    src_f32 = nv12_to_rgb_planar(torch.as_tensor(nv12, device=dev)
+                                 ).contiguous()
+    gains = st.state.gains
+    src_b = torch.cat([src_u8, torch.as_tensor(
+        frames2, device=dev).permute(0, 3, 1, 2)]).contiguous()
+    gains_b = gains.repeat(2)
+    k1_err = 0.0
+    for name, s, m, g in (("u8 source", src_u8, maps, gains),
+                          ("f32 source", src_f32, maps, gains),
+                          ("calibrated maps", src_u8, st.state.fused_maps,
+                           gains),
+                          ("batched N=12 n_maps=6", src_b, maps, gains_b)):
+        got = remap_strips(s, m, g)
+        want = remap_strips_plain(s, m, g)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        k1_err = max(k1_err, err)
+        check(got.shape == want.shape and err <= K1_ATOL,
+              f"K1 {name} {tuple(got.shape)}: max abs {err:.3g} "
+              f"<= {K1_ATOL}")
+    zeros = remap_strips(src_u8, maps, gains)[:, :, dead[0], dead[1]]
+    check(float(zeros.abs().max()) == 0.0, "K1 -1 region is exactly 0")
+
+    # ---- times -----------------------------------------------------------
+    log(f"phase times (median of {REPS})")
+    fused = st.state.fused_maps
+    frames_dev = torch.as_tensor(frames, device=dev)
+    stitch_out_ms = sync_ms(lambda: st.stitch_out(frames_dev, device=True))
+    stitch_out_host_ms = sync_ms(lambda: st.stitch_out(frames))
+    k1_ms = event_ms(lambda: remap_strips(src_u8, fused, gains))
+    plain_ms = event_ms(lambda: remap_strips_plain(src_u8, fused, gains),
+                        reps=REPS)
+    # the library call computing K1's function: grid_sample (bilinear,
+    # zero padding, align_corners so -1..size-1 spans the pixel centres)
+    src_lib = src_u8.float()
+    bw, bh = fused.shape[3], fused.shape[2]
+    grid = torch.stack([fused[:, 0] * (2.0 / (geom.src_w - 1)) - 1.0,
+                        fused[:, 1] * (2.0 / (geom.src_h - 1)) - 1.0],
+                       dim=-1).contiguous()
+
+    def library():
+        out = torch.nn.functional.grid_sample(
+            src_lib, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True)
+        return torch.clamp(out * gains[:, None, None, None], 0.0, 255.0)
+    lib_ms = event_ms(library)
+    lib_err = float((library() - remap_strips(src_u8, fused, gains)
+                     ).abs().max())
+    bound_ms, bound_by, nbytes = k1_bound_ms(src_u8, fused, 3,
+                                             src_u8.shape[0])
+    # where stitch_out's time goes, stage by stage (frames on the card)
+    oh, ow = st._out_size()
+    pano_f32 = blend_f32(bands, st.state, geom)
+    stages = {
+        "warp (permute + K1)": event_ms(
+            lambda: warp_bands(frames_dev, st.state, geom)),
+        "blend (pyramids + placement)": event_ms(
+            lambda: blend_f32(bands, st.state, geom)),
+        "resize + u8 pack": event_ms(
+            lambda: _pack_u8_hwc(resize_planar(pano_f32, oh, ow))),
+    }
+    for name, ms in stages.items():
+        log(f"  stage {name}: {ms:.4f} ms")
+    busy, kernels_per_frame, top = device_profile(
+        lambda: st.stitch_out(frames_dev, device=True))
+    if busy > 0:
+        log(f"  stitch_out under torch.profiler: card busy {busy:.4f} of "
+            f"the wall time, {kernels_per_frame:.1f} kernels per frame")
+    else:
+        log("  stitch_out under torch.profiler: no device time seen, "
+            "busy share not measured")
+    for key, ms, count in top:
+        log(f"    {ms:.4f} ms/frame in {count} x {key}")
+    log(f"  stitch_out per frame {stitch_out_ms:.4f} ms (frames on the "
+        f"card), {stitch_out_host_ms:.4f} ms (host numpy in and out)")
+    log(f"  K1 {k1_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"{lib_ms:.4f} ms (max abs vs K1 {lib_err:.3g}); bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({nbytes} bytes); "
+        f"calibrate {calib_s:.3f} s")
+    log(json.dumps({"metrics": {
+        "card": card, "calibrate_s": calib_s,
+        "stitch_out_ms": stitch_out_ms,
+        "stitch_out_host_ms": stitch_out_host_ms,
+        "psnr_stitch_db": p_rgb, "psnr_stitch_nv12_db": p_nv12,
+        "psnr_stitch_nv12_luma_db": p_nv12_y,
+        "bf16_vs_f32_blend_db": p16, "bf16_vs_f32_blend_u8_max_abs": d16,
+        "stage_ms": stages, "stitch_out_card_busy_share": busy,
+        "stitch_out_kernels_per_frame": kernels_per_frame,
+        "build_s": built}}))
+
+    log(json.dumps({"kernels": [{
+        "name": "K1 remap_gain", "route": "cuda", "source": K1_SOURCE,
+        "replaces": K1_REPLACES, "launches": main_launches,
+        "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}]}))
+    log(card)
+    if FAILED:
+        print(f"chip_smoke: {len(FAILED)} checks failed: {FAILED}",
+              file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        code = main()
+    except Exception:                      # report the phase that failed
+        traceback.print_exc()
+        print("chip_smoke: FAILED", file=sys.stderr)
+        code = 1
+    sys.exit(code)

@@ -1,0 +1,110 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX
+package, and its entry points run on the card unless asked for the CPU."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+from video_stitcher_tpu_torch import Stitcher, StitcherConfig
+from video_stitcher_tpu_torch.ops.remap_strips import (
+    remap_strips, remap_strips_plain,
+)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "video_stitcher_tpu_torch"
+
+
+def _forbidden(mod: str) -> bool:
+    return (mod == "jax" or mod.startswith("jax.")
+            or mod == "video_stitcher_tpu"
+            or mod.startswith("video_stitcher_tpu."))
+
+
+def test_import_pulls_in_no_jax():
+    code = (
+        "import sys\n"
+        "import video_stitcher_tpu_torch as p\n"
+        "from video_stitcher_tpu_torch.pipeline import stitcher\n"
+        "from video_stitcher_tpu_torch import interop, _build\n"
+        "from video_stitcher_tpu_torch.utils import synth\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'video_stitcher_tpu' or m.startswith('video_stitcher_tpu.')]"
+        "\nassert not bad, bad\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")))
+def test_source_imports_no_jax(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+def test_smoke_script_imports_no_jax():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else [node.module or ""])
+            assert not [n for n in names if _forbidden(n)], node.lineno
+
+
+def test_stitcher_defaults_to_the_card():
+    cfg = StitcherConfig(num_images=2, input_width=64, input_height=36,
+                         enable_local=False)
+    if torch.cuda.is_available():
+        assert Stitcher(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Stitcher(cfg)
+    assert Stitcher(cfg, device="cpu").device.type == "cpu"
+
+
+def test_unported_paths_raise():
+    frames = np.zeros((2, 36, 64, 3), np.uint8)
+    cfg = StitcherConfig(num_images=2, input_width=64, input_height=36)
+    with pytest.raises(NotImplementedError, match="enable_local"):
+        Stitcher(cfg, device="cpu").calibrate(frames)
+
+
+def test_remap_strips_checks_its_inputs():
+    src = torch.zeros((4, 3, 8, 8), dtype=torch.uint8)
+    maps = torch.zeros((2, 2, 4, 4))
+    gains = torch.ones(4)
+    assert remap_strips(src, maps, gains).shape == (4, 3, 4, 4)
+    with pytest.raises(ValueError, match="tile"):
+        remap_strips(src[:3], maps, gains[:3])
+    with pytest.raises(ValueError, match="gains"):
+        remap_strips(src, maps, gains[:2])
+    with pytest.raises(TypeError, match="u8 or f32"):
+        remap_strips(src.to(torch.int32), maps, gains)
+    with pytest.raises(TypeError, match="float32"):
+        remap_strips_plain(src, maps.double(), gains)
+    with pytest.raises(ValueError, match="no K1 kernel"):
+        remap_strips(src.to("meta"), maps.to("meta"), gains.to("meta"))
+
+
+def test_cpu_calls_are_not_counted_as_launches():
+    before = remap_strips.launches
+    remap_strips(torch.zeros((1, 3, 4, 4)), torch.zeros((1, 2, 4, 4)),
+                 torch.ones(1))
+    assert remap_strips.launches == before

@@ -1,0 +1,19 @@
+"""PyTorch/CUDA port of the 360 live video stitcher.
+
+A second package beside the JAX one (``video_stitcher_tpu``), which stays
+the reference it is tested against; this package imports nothing of it.
+Plain tensor code is PyTorch; the per-frame warp is a CUDA kernel written
+for Hopper (``csrc/remap_gain.cu``), built with nvcc at first use.
+"""
+
+from video_stitcher_tpu_torch.config import StitcherConfig
+
+__all__ = ["StitcherConfig", "Stitcher"]
+
+
+def __getattr__(name):
+    # lazy: keeps `import video_stitcher_tpu_torch` light
+    if name == "Stitcher":
+        from video_stitcher_tpu_torch.pipeline.stitcher import Stitcher
+        return Stitcher
+    raise AttributeError(name)

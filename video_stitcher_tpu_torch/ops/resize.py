@@ -1,0 +1,81 @@
+"""Bilinear resize with cv INTER_LINEAR semantics, and the banded-tap
+helpers the pyramid and colour ops share.
+
+Torch twin of the JAX package's ``ops/resize.py``. Each axis of a resize
+(and of a pyramid pass) is a banded linear map, built on the host as a
+small dense matrix exactly as the JAX package builds it; here only its few
+nonzero taps per output row are kept, and the map is applied as that many
+``index_select`` + multiply-adds along the axis (the dense matmul would
+spend almost all of its work on structural zeros).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable, Tuple
+
+import numpy as np
+import torch
+
+
+@functools.lru_cache(maxsize=256)
+def _interp_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """[n_out, n_in] bilinear interpolation matrix (OpenCV convention:
+    src = (dst + 0.5) * in/out - 0.5, edge-clamped taps)."""
+    scale = n_in / n_out
+    src = (np.arange(n_out, dtype=np.float64) + 0.5) * scale - 0.5
+    i0 = np.floor(src).astype(np.int64)
+    f = (src - i0).astype(np.float64)
+    i0c = np.clip(i0, 0, n_in - 1)
+    i1c = np.clip(i0 + 1, 0, n_in - 1)
+    m = np.zeros((n_out, n_in), dtype=np.float32)
+    rows = np.arange(n_out)
+    np.add.at(m, (rows, i0c), (1.0 - f).astype(np.float32))
+    np.add.at(m, (rows, i1c), f.astype(np.float32))
+    return m
+
+
+def matrix_taps(m: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """[n_out, n_in] banded matrix -> (idx i64 [T, n_out], w f32 [T, n_out]):
+    each row's nonzero columns in ascending order, padded with weight 0."""
+    nz = m != 0
+    t = max(1, int(nz.sum(1).max()))
+    cols = np.argsort(~nz, axis=1, kind="stable")[:, :t]
+    w = np.take_along_axis(m, cols, axis=1).astype(np.float32)
+    return np.ascontiguousarray(cols.T), np.ascontiguousarray(w.T)
+
+
+@functools.lru_cache(maxsize=256)
+def device_taps(make_matrix: Callable[..., np.ndarray], args: tuple,
+                device: torch.device):
+    """matrix_taps(make_matrix(*args)) as tensors on `device`, cached so the
+    per-frame path uploads no index arrays."""
+    idx, w = matrix_taps(make_matrix(*args))
+    return (torch.as_tensor(idx, device=device),
+            torch.as_tensor(w, device=device))
+
+
+def apply_taps(x: torch.Tensor, taps, axis: int) -> torch.Tensor:
+    """Apply a banded map along `axis` (-1 or -2) of f32 x."""
+    idx, w = taps
+    shape = [1] * x.dim()
+    shape[axis] = idx.shape[1]
+    out = None
+    for t in range(idx.shape[0]):
+        term = x.index_select(axis, idx[t]) * w[t].view(shape)
+        out = term if out is None else out + term
+    return out
+
+
+def resize_planar(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """img [..., H, W] -> f32 [..., out_h, out_w], bilinear (width pass,
+    then height pass, as the JAX package orders them)."""
+    h, w = img.shape[-2], img.shape[-1]
+    x = img.to(torch.float32)
+    if w != out_w:
+        x = apply_taps(x, device_taps(_interp_matrix, (w, out_w), x.device),
+                       -1)
+    if h != out_h:
+        x = apply_taps(x, device_taps(_interp_matrix, (h, out_h), x.device),
+                       -2)
+    return x

@@ -1,0 +1,211 @@
+"""The online stitcher: calibrate once, then one warp launch + one batched
+pyramid blend per frame set.
+
+Torch twin of the JAX package's ``pipeline/stitcher.py`` (the reference's
+per-frame chain upload -> resize -> remap -> gain -> feed -> blend,
+360_stitcher/timed.cpp:56-152). Per frame set: the frames go to the device,
+K1 (``ops/remap_strips.remap_strips``) warps all cameras through the fused
+backward maps with the gain and clamp in its store, the bands are blended
+(``blend/multiband.py``) and the result is packed to u8.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from video_stitcher_tpu_torch.blend.multiband import (
+    blend_bands, blend_feather,
+)
+from video_stitcher_tpu_torch.calib.calibration import (
+    StitchGeometry, calibrate, check_supported, plan_geometry,
+)
+from video_stitcher_tpu_torch.calib.state import (
+    CalibState, load_state, save_state, state_to,
+)
+from video_stitcher_tpu_torch.config import StitcherConfig
+from video_stitcher_tpu_torch.ops.color import nv12_to_rgb_planar
+from video_stitcher_tpu_torch.ops.remap_strips import remap_strips
+from video_stitcher_tpu_torch.ops.resize import resize_planar
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device the port computes on: the card unless the caller asks
+    for another (the tests pass "cpu")."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: the stitcher runs on the "
+                               "card; pass device='cpu' to run on the host")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def _warp_source(frames_u8: torch.Tensor) -> torch.Tensor:
+    """u8 RGB [N, H, W, 3] -> planar u8 [N, 3, H, W] (exact), or NV12 u8
+    [N, H*3/2, W] -> planar f32 [N, 3, H, W]."""
+    if frames_u8.dim() == 3:
+        return nv12_to_rgb_planar(frames_u8).contiguous()
+    return frames_u8.permute(0, 3, 1, 2).contiguous()
+
+
+def warp_bands(frames_u8: torch.Tensor, state: CalibState,
+               geom: StitchGeometry) -> torch.Tensor:
+    """Frames -> gain-compensated warped bands f32 [N, 3, bh, bw] through
+    one K1 launch. N may be B * n_maps (batched frame sets reuse the maps
+    cyclically; the gains are tiled to match)."""
+    src = _warp_source(frames_u8)
+    n_maps = state.fused_maps.shape[0]
+    gains = state.gains
+    if src.shape[0] != n_maps:
+        gains = gains.repeat(src.shape[0] // n_maps)
+    return remap_strips(src, state.fused_maps, gains)
+
+
+def blend_f32(bands, state: CalibState, geom: StitchGeometry):
+    """Warped bands -> blended panorama, planar f32 [3, H, W]."""
+    if geom.blend_type == "feather" or geom.num_bands == 0:
+        return blend_feather(bands, state.weight_pyr[0][:, 0], geom.layout,
+                             state.valid_mask)
+    return blend_bands(bands, state.weight_pyr, geom.layout,
+                       state.valid_mask, geom.blend_precision)
+
+
+def _pack_u8_hwc(pano_f32):
+    pano = torch.clamp(torch.round(pano_f32), 0.0, 255.0).to(torch.uint8)
+    return pano.movedim(-3, -1).contiguous()
+
+
+def blend_pack(bands, state: CalibState, geom: StitchGeometry):
+    """Warped bands -> u8 panorama [pano_h, pano_w, 3]."""
+    return _pack_u8_hwc(blend_f32(bands, state, geom))
+
+
+def blend_resize_pack(bands, state: CalibState, geom: StitchGeometry,
+                      out_h: int, out_w: int):
+    """Warped bands -> final output frame u8 [out_h, out_w, 3], resizing
+    the f32 panorama (timed.cpp:281) before the single u8 pack."""
+    pano = blend_f32(bands, state, geom)
+    return _pack_u8_hwc(resize_planar(pano, out_h, out_w))
+
+
+def stitch_pano(frames_u8, state: CalibState, geom: StitchGeometry):
+    """Full per-frame stitch -> u8 panorama [pano_h, pano_w, 3]."""
+    return blend_pack(warp_bands(frames_u8, state, geom), state, geom)
+
+
+def output_frame(pano_u8, out_h: int, out_w: int):
+    """Consumer-side resize to the configured output (timed.cpp:281)."""
+    y = resize_planar(pano_u8.movedim(-1, 0).to(torch.float32), out_h, out_w)
+    return _pack_u8_hwc(y)
+
+
+class Stitcher:
+    """High-level API: calibrate once, stitch per frame.
+
+    >>> st = Stitcher(cfg); st.calibrate(frames); pano = st.stitch(frames)
+
+    Runs on the card unless `device` names another (the tests pass "cpu").
+    """
+
+    def __init__(self, cfg: StitcherConfig, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.geom: Optional[StitchGeometry] = None
+        self.state: Optional[CalibState] = None
+        self.aux: Optional[dict] = None
+
+    # --- calibration -------------------------------------------------
+    def calibrate(self, frames: np.ndarray) -> None:
+        self.geom, self.state, self.aux = calibrate(
+            np.asarray(frames), self.cfg, self.device)
+
+    def save_calibration(self, path: str) -> None:
+        save_state(path, self.state)
+
+    def load_calibration(self, path: str) -> None:
+        """Install a checkpoint written by either package's save_state."""
+        self.swap_state(load_state(path, self.device))
+
+    def swap_state(self, state: CalibState) -> None:
+        """Install a CalibState (moved to this stitcher's device). Maps
+        padded beyond the band (TPU strip-plan checkpoints) are cropped."""
+        if self.geom is None:
+            self.geom, _ = plan_geometry(self.cfg)
+        check_supported(self.cfg, self.geom)
+        lay = self.geom.layout
+        state = state_to(state, self.device)
+        self.state = state._replace(fused_maps=state.fused_maps[
+            :, :, :lay.band_h, :lay.band_w].contiguous())
+
+    # --- online ------------------------------------------------------
+    def _frames(self, frames) -> torch.Tensor:
+        return torch.as_tensor(frames, device=self.device)
+
+    def stitch(self, frames, device: bool = False):
+        """frames u8 [N, H, W, 3] (or NV12 [N, H*3/2, W]) -> u8 pano
+        [pano_h, pano_w, 3]. device=True returns the tensor on the device
+        (no host transfer)."""
+        pano = stitch_pano(self._frames(frames), self.state, self.geom)
+        return pano if device else pano.cpu().numpy()
+
+    def stitch_nv12(self, nv12, device: bool = False):
+        """Production ingest path: NV12 u8 [N, H*3/2, W] -> u8 pano. The
+        conversion to planar RGB runs on the device."""
+        return self.stitch(nv12, device)
+
+    def stitch_batch(self, frames, device: bool = False):
+        """u8 [B, N, H, W, 3] (or NV12 [B, N, H*3/2, W]) -> u8 panos
+        [B, pano_h, pano_w, 3], with ONE warp launch over the B*N cameras
+        (the maps are reused cyclically)."""
+        f = self._frames(frames)
+        b, n = f.shape[0], f.shape[1]
+        bands = warp_bands(f.reshape((b * n,) + tuple(f.shape[2:])),
+                           self.state, self.geom)
+        bands = bands.reshape((b, n) + tuple(bands.shape[1:]))
+        panos = torch.stack([blend_pack(bb, self.state, self.geom)
+                             for bb in bands])
+        return panos if device else panos.cpu().numpy()
+
+    def _out_size(self):
+        """Output frame size under the aspect policy (timed.cpp:254-292)."""
+        cfg = self.cfg
+        if cfg.keep_aspect_ratio:
+            oh = int(cfg.output_width / self.geom.pano_w * self.geom.pano_h
+                     + 0.5)
+            oh = min(oh, cfg.output_height)
+        else:
+            oh = cfg.output_height
+        return oh, cfg.output_width
+
+    def stitch_out(self, frames, device: bool = False):
+        """frames -> final output frame, resizing the f32 panorama instead
+        of an intermediate u8 one. device=True returns the device tensor
+        before black-bar compositing; otherwise equivalent to
+        output(stitch(frames)) up to that rounding."""
+        oh, ow = self._out_size()
+        frame = blend_resize_pack(
+            warp_bands(self._frames(frames), self.state, self.geom),
+            self.state, self.geom, oh, ow)
+        return frame if device else self.finalize_out(frame)
+
+    def finalize_out(self, frame):
+        """Output frame -> host np frame with the black-bar policy applied
+        (timed.cpp:285-292)."""
+        cfg = self.cfg
+        if isinstance(frame, torch.Tensor):
+            frame = frame.cpu().numpy()
+        if cfg.keep_aspect_ratio and cfg.add_black_bars:
+            canvas = np.zeros((cfg.output_height, cfg.output_width, 3),
+                              np.uint8)
+            y0 = cfg.output_height // 2 - frame.shape[0] // 2
+            canvas[y0:y0 + frame.shape[0]] = frame
+            return canvas
+        return frame
+
+    def output(self, pano_u8):
+        """pano -> final output frame at cfg.output_* with the aspect
+        policy (timed.cpp:254-292)."""
+        oh, ow = self._out_size()
+        return self.finalize_out(output_frame(self._frames(pano_u8), oh, ow))
