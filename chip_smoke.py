@@ -9,6 +9,10 @@ stitch_out / stitch_batch, and checks each result against the scene and
 against the port's plain versions. Then holds kernel K1 against its plain
 PyTorch version at the main path's shapes and times the path, K1, K1's
 plain version and the PyTorch library call that computes K1's function.
+Then drives the separable warp (pass_h, kernel K2) at the same rig from
+the calibrated state, holds K2 against its plain version and the path
+against K1, blends its bands, and times pass_h, K2, K2's plain version
+and the library call that computes K2's function.
 
 Prints the card's name and power limit, one {"kernels": [...]} line, and
 as its last line {"ok": true, "device": {...}}. Exits non-zero, with no
@@ -34,8 +38,16 @@ K1_ATOL = 1e-3         # K1 vs its plain version, both f32
 REPS = 20
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 F32_FLOPS = 67e12                  # H100 SXM, f32 outside the tensor cores
+BF16_FLOPS = 989e12                # H100 SXM, dense bf16 tensor cores
 K1_SOURCE = "video_stitcher_tpu_torch/csrc/remap_gain.cu"
 K1_REPLACES = "video_stitcher_tpu/ops/remap_strips.py:543"
+K2_ATOL = 1e-3         # K2 vs its plain version, both f32
+PASS_H_ATOL = 1.0      # bf16 pass_h vs the f32 product of the same inputs
+                       # (experiments/test_remap_separable.py:49)
+SEP_VS_K1_ATOL = 2.0   # the separable warp vs K1, 0-255 scale: the bf16
+                       # bound of the TPU warp (ops/remap_strips.py:64-70)
+K2_SOURCE = "video_stitcher_tpu_torch/csrc/remap_separable.cu"
+K2_REPLACES = "experiments/remap_separable.py:171"
 
 
 def log(msg: str) -> None:
@@ -170,10 +182,156 @@ def k1_bound_ms(src, maps, n_out_ch: int, n_out: int):
     bh, bw = maps.shape[2], maps.shape[3]
     nbytes = (src.numel() * src.element_size() + maps.numel() * 4
               + src.shape[0] * 4 + n_out * n_out_ch * bh * bw * 4)
-    flops = 40.0 * n_out * bh * bw
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return (*bound_ms(nbytes, 40.0 * n_out * bh * bw, F32_FLOPS), nbytes)
+
+
+def bound_ms(nbytes: float, flops: float, peak_flops: float):
+    """Least time on this card for work that moves nbytes and does flops
+    at peak_flops: (ms, "bytes" or "operations")."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", nbytes)
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def perturbed_maps(maps: np.ndarray) -> np.ndarray:
+    """The calibrated maps with a smooth +-2 px x displacement (the kind a
+    CPW mesh adds, so Pass V reads off its own band column) and a -1
+    corner, as experiments/test_remap_separable.py:22-32 builds them."""
+    m = maps.copy()
+    n, _, bh, bw = m.shape
+    gy = np.arange(bh, dtype=np.float64)[:, None]
+    xb = np.arange(bw, dtype=np.float64)[None]
+    for i in range(n):
+        dx = 2.0 * np.sin(gy / 5.0 + i) * np.cos(xb / 17.0)
+        m[i, 0] = np.where(m[i, 0] > -1, m[i, 0] + dx, m[i, 0])
+    m[0, :, :bh // 20, :bw // 13] = -1.0
+    return m
+
+
+def k2_phase(st, frames, scene, valid, dev):
+    """The separable warp at the main path's rig: plan from the calibrated
+    state, drive pass_h + K2 and blend, check, time. Returns (the K2 entry
+    of the kernels line, metrics)."""
+    from video_stitcher_tpu_torch.experiments import remap_separable as sep
+    from video_stitcher_tpu_torch.pipeline.stitcher import (
+        blend_pack, warp_bands)
+    state, geom = st.state, st.geom
+    log("phase K2 separable warp")
+    t0 = time.perf_counter()
+    fused = state.fused_maps.cpu().numpy()
+    maps_p, gmx_p = sep.pad_maps(fused, sep.global_x_map(fused))
+    plan = sep.plan_separable(maps_p, gmx_p, geom.src_h, geom.src_w)
+    plan_pert = sep.plan_separable(perturbed_maps(maps_p), gmx_p,
+                                   geom.src_h, geom.src_w)
+    plan_s = time.perf_counter() - t0
+    n, _, bh, bw = fused.shape
+    wx = torch.as_tensor(plan.wx, device=dev).to(torch.bfloat16)
+    vmaps = torch.as_tensor(plan.vmaps, device=dev)
+    vmaps_pert = torch.as_tensor(plan_pert.vmaps, device=dev)
+    gains = state.gains[:, None, None, None]
+    frames_dev = torch.as_tensor(frames, device=dev)
+    src = sep.source_planar(frames_dev, plan.i1_hp)
+    i1 = sep.pass_h(src, wx)
+    dx = plan_pert.vmaps[:, 0]
+    resid = float(np.abs(dx - np.arange(plan.bw_p))[dx > -1].max())
+    log(f"  plan {plan_s:.3f} s: I1 {tuple(i1.shape)} {i1.dtype}, vmaps "
+        f"{tuple(vmaps.shape)}, perturbed x residual up to {resid:.3f} px")
+    check(tuple(i1.shape) == (n, 3, plan.i1_hp, bw + sep.XPAD
+                              + sep.LANE_PAD_R)
+          and (plan.bh_p, plan.bw_p) == (bh, bw),
+          "separable plan at the band's shape, no padding needed")
+
+    # the path, counted from 0: pass_h + K2, gain and clamp, blend
+    sep.pass_v.launches = 0
+    bands = torch.clamp(sep.warp_separable(src, wx, vmaps)[:, :, :bh, :bw]
+                        * gains, 0.0, 255.0)
+    pano = blend_pack(bands, state, geom).cpu().numpy()
+    k2_launches = sep.pass_v.launches
+    check(k2_launches == 1, f"the separable path ran through K2 "
+          f"({k2_launches} launch)")
+    k1_bands = warp_bands(frames_dev, state, geom)
+    d_k1 = float((bands - k1_bands).abs().max())
+    check(d_k1 <= SEP_VS_K1_ATOL,
+          f"separable warp x gains within {d_k1:.4f} of K1 "
+          f"(<= {SEP_VS_K1_ATOL})")
+    p_sep = scene_psnr(pano, scene, valid)
+    check(p_sep >= MIN_PSNR_DB,
+          f"separable path pano psnr {p_sep:.4f} >= {MIN_PSNR_DB}")
+
+    # pass_h against the f32 product of the same bf16 inputs
+    gold = torch.bmm(src.float().reshape(n, -1, src.shape[3]),
+                     wx.float().transpose(1, 2)).reshape(n, 3, plan.i1_hp, -1)
+    d_h = float((i1[..., sep.XPAD:sep.XPAD + plan.bw_p].float() - gold
+                 ).abs().max())
+    del gold
+    check(d_h <= PASS_H_ATOL, f"pass_h within {d_h:.4f} of the f32 "
+          f"product (<= {PASS_H_ATOL})")
+
+    # K2 against its plain version, on the real and the perturbed maps
+    k2_err = 0.0
+    for name, vm in (("calibrated vmaps", vmaps),
+                     ("perturbed vmaps", vmaps_pert)):
+        got = sep.pass_v(i1, vm)
+        want = sep.pass_v_plain(i1, vm)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        k2_err = max(k2_err, err)
+        check(got.shape == want.shape and err <= K2_ATOL,
+              f"K2 {name} {tuple(got.shape)}: max abs {err:.3g} "
+              f"<= {K2_ATOL}")
+        dead = (vm[:, 1] == -2.0)[:, None].expand_as(got)
+        check(bool(dead.any()) and float(got[dead].abs().max()) == 0.0,
+              f"K2 {name}: the {int(dead[:, 0].sum())} invalid pixels "
+              f"are exactly 0")
+    check(bool((plan_pert.vmaps[0, :, :bh // 20, :bw // 13] == -2).all()),
+          "the perturbed maps' -1 corner is marked invalid")
+
+    # times, and the library call computing K2's function: grid_sample
+    # (bilinear, zeros, align_corners) on I1 in f32 (f32 weights)
+    i1_f32 = i1.float()
+    hp, wp = i1.shape[2], i1.shape[3]
+    grid = torch.stack([(vmaps[:, 0] + sep.XPAD) * (2.0 / (wp - 1)) - 1.0,
+                        vmaps[:, 1] * (2.0 / (hp - 1)) - 1.0],
+                       dim=-1).contiguous()
+
+    def library():
+        return torch.nn.functional.grid_sample(
+            i1_f32, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True)
+    times = {
+        "pass_h": event_ms(lambda: sep.pass_h(src, wx)),
+        "k2": event_ms(lambda: sep.pass_v(i1, vmaps)),
+        "k2_plain": event_ms(lambda: sep.pass_v_plain(i1, vmaps)),
+        "library": event_ms(library),
+        "warp_separable": event_ms(lambda: sep.warp_separable(src, wx,
+                                                              vmaps)),
+    }
+    lib_err = float((library() - sep.pass_v(i1, vmaps)).abs().max())
+    pixels = n * plan.bh_p * plan.bw_p
+    k2_bytes = i1.numel() * 2 + vmaps.numel() * 4 + 3 * pixels * 4
+    k2_bound, k2_by = bound_ms(k2_bytes, 40.0 * pixels, F32_FLOPS)
+    h_flops = 2.0 * n * 3 * plan.i1_hp * geom.src_w * plan.bw_p
+    h_bytes = src.numel() * 2 + wx.numel() * 2 + i1.numel() * 2
+    h_bound, h_by = bound_ms(h_bytes, h_flops, BF16_FLOPS)
+    log(f"  pass_h {times['pass_h']:.4f} ms, bound {h_bound:.4f} ms by "
+        f"{h_by} ({h_flops:.4g} flops, {h_bytes} bytes)")
+    log(f"  K2 {times['k2']:.4f} ms, plain {times['k2_plain']:.4f} ms, "
+        f"library {times['library']:.4f} ms (max abs vs K2 {lib_err:.3g}); "
+        f"bound {k2_bound:.4f} ms by {k2_by} ({k2_bytes} bytes); "
+        f"warp_separable {times['warp_separable']:.4f} ms")
+    entry = {
+        "name": "K2 remap_separable pass_v", "route": "cuda",
+        "source": K2_SOURCE, "replaces": K2_REPLACES,
+        "launches": k2_launches, "max_abs_err": k2_err,
+        "ms": times["k2"], "plain_ms": times["k2_plain"],
+        "bound_ms": k2_bound, "bound_by": k2_by,
+        "library_ms": times["library"]}
+    metrics = {"separable_plan_s": plan_s, "separable_vs_k1_max_abs": d_k1,
+               "psnr_separable_db": p_sep, "pass_h_max_abs": d_h,
+               "pass_h_ms": times["pass_h"], "pass_h_bound_ms": h_bound,
+               "warp_separable_ms": times["warp_separable"],
+               "k2_library_max_abs": lib_err}
+    return entry, metrics
 
 
 def main() -> int:
@@ -357,10 +515,10 @@ def run(cfg, dev) -> int:
     lib_ms = event_ms(library)
     lib_err = float((library() - remap_strips(src_u8, fused, gains)
                      ).abs().max())
-    bound_ms, bound_by, nbytes = k1_bound_ms(src_u8, fused, 3,
-                                             src_u8.shape[0])
+    k1_bound, k1_by, nbytes = k1_bound_ms(src_u8, fused, 3,
+                                          src_u8.shape[0])
     # where stitch_out's time goes, stage by stage (frames on the card)
-    oh, ow = st._out_size()
+    oh, ow = st._out_size(geom)
     pano_f32 = blend_f32(bands, st.state, geom)
     stages = {
         "warp (permute + K1)": event_ms(
@@ -386,8 +544,9 @@ def run(cfg, dev) -> int:
         f"card), {stitch_out_host_ms:.4f} ms (host numpy in and out)")
     log(f"  K1 {k1_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
         f"{lib_ms:.4f} ms (max abs vs K1 {lib_err:.3g}); bound "
-        f"{bound_ms:.4f} ms by {bound_by} ({nbytes} bytes); "
+        f"{k1_bound:.4f} ms by {k1_by} ({nbytes} bytes); "
         f"calibrate {calib_s:.3f} s")
+    k2_entry, k2_metrics = k2_phase(st, frames, scene, valid, dev)
     log(json.dumps({"metrics": {
         "card": card, "calibrate_s": calib_s,
         "stitch_out_ms": stitch_out_ms,
@@ -397,13 +556,14 @@ def run(cfg, dev) -> int:
         "bf16_vs_f32_blend_db": p16, "bf16_vs_f32_blend_u8_max_abs": d16,
         "stage_ms": stages, "stitch_out_card_busy_share": busy,
         "stitch_out_kernels_per_frame": kernels_per_frame,
-        "build_s": built}}))
+        "build_s": built, **k2_metrics}}))
 
     log(json.dumps({"kernels": [{
         "name": "K1 remap_gain", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": main_launches,
         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}]}))
+        "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": lib_ms},
+        k2_entry]}))
     log(card)
     if FAILED:
         print(f"chip_smoke: {len(FAILED)} checks failed: {FAILED}",

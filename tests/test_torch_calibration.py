@@ -1,7 +1,12 @@
 """The port's calibration against the JAX package's, rig for rig: the same
 geometry, fused maps within 1e-3 px, gains within 1e-5 relative, weight
-pyramids within 1e-5 and the same valid mask. Rigs: the 6x320x180 ring of
-tests/test_stitch_e2e.py and a 2-camera partial (non-wrap) rig.
+pyramids within 1e-5, the same valid mask, and the same calibration aux
+(overlap masks bit for bit), also when a loaded checkpoint rebuilds it.
+Rigs: the 6x320x180 ring of tests/test_stitch_e2e.py, a 2-camera partial
+(non-wrap) rig, and the 4x640x360 ring of tests/test_map_convention.py
+at compose_megapix=0.12 (compose scale 0.72, no prewarp) in both map
+conventions, the only rigs here that take the compose-scale path and
+the "reference" back-conversion.
 
 The JAX calibration runs op by op (``jax.disable_jit``). Compiled, XLA may
 contract the seam-canvas row coordinate (y + v0) * ratio - v0' into a
@@ -37,7 +42,16 @@ RIGS = {
     "pair_nonwrap": dict(num_images=2, input_width=320, input_height=180,
                          wrap_around=False, yaws=(0.0, math.pi / 3),
                          enable_local=False, recalibrate=False),
+    "ring4_c012_exact": dict(num_images=4, input_width=640,
+                             input_height=360, compose_megapix=0.12,
+                             enable_local=False, recalibrate=False,
+                             map_convention="exact"),
+    "ring4_c012_reference": dict(num_images=4, input_width=640,
+                                 input_height=360, compose_megapix=0.12,
+                                 enable_local=False, recalibrate=False,
+                                 map_convention="reference"),
 }
+COMPOSE_RIGS = ("ring4_c012_exact", "ring4_c012_reference")
 
 
 @pytest.fixture(scope="module", params=sorted(RIGS))
@@ -55,6 +69,14 @@ def calibrated(request):
     st = Stitcher(StitcherConfig(**kw), device="cpu")
     st.calibrate(frames)
     return jst, st, kw, frames, scene
+
+
+@pytest.mark.parametrize("rig", COMPOSE_RIGS)
+def test_compose_scale_rigs_resize_without_prewarp(rig):
+    for geom, _ in (j_plan(JConfig(**RIGS[rig])),
+                    plan_geometry(StitcherConfig(**RIGS[rig]))):
+        assert 0.5 < geom.compose_scale < 0.9
+        assert not geom.prewarp
 
 
 def test_geometry_matches(calibrated):
@@ -153,3 +175,31 @@ def test_compiled_jax_weights_differ_only_on_integral_canvas_rows(
     canvas_row = (rows + np.float64(np.float32(geom.layout.v0))) \
         * np.float64(np.float32(sc.ratio)) - np.float64(np.float32(sc.v0))
     np.testing.assert_allclose(canvas_row, np.round(canvas_row), atol=1e-4)
+
+
+def test_overlap_masks_match_jax(calibrated):
+    """Bit for bit against the JAX package's op-by-op
+    _compose_products_device: warp validity AND >= 2 cameras (none on
+    the 4-camera rigs, whose 90-degree views only touch)."""
+    jst, st, _, _, _ = calibrated
+    port = st.aux["overlap_masks"].numpy()
+    np.testing.assert_array_equal(port, np.asarray(jst.aux["overlap_masks"]))
+    assert port.dtype == np.float32
+    assert set(np.unique(port)) <= {0.0, 1.0}
+
+
+def test_loaded_calibration_rebuilds_the_aux(calibrated, tmp_path):
+    """load_calibration rebuilds what calibrate returned, without frames:
+    the seam masks depend on warp validity only."""
+    _, st, kw, frames, _ = calibrated
+    path = str(tmp_path / "calib.npz")
+    st.save_calibration(path)
+    loaded = Stitcher(StitcherConfig(**kw), device="cpu")
+    loaded.load_calibration(path)
+    assert set(loaded.aux) == set(st.aux)
+    np.testing.assert_array_equal(loaded.aux["seam_masks"],
+                                  st.aux["seam_masks"])
+    for key in ("weights0", "overlap_masks", "band_maps"):
+        np.testing.assert_array_equal(loaded.aux[key].numpy(),
+                                      st.aux[key].numpy())
+    np.testing.assert_array_equal(loaded.stitch(frames), st.stitch(frames))

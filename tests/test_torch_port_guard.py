@@ -13,6 +13,7 @@ import torch
 torch.set_num_threads(1)
 
 from video_stitcher_tpu_torch import Stitcher, StitcherConfig
+from video_stitcher_tpu_torch.experiments.remap_separable import pass_v
 from video_stitcher_tpu_torch.ops.remap_strips import (
     remap_strips, remap_strips_plain,
 )
@@ -34,6 +35,7 @@ def test_import_pulls_in_no_jax():
         "from video_stitcher_tpu_torch.pipeline import stitcher\n"
         "from video_stitcher_tpu_torch import interop, _build\n"
         "from video_stitcher_tpu_torch.utils import synth\n"
+        "from video_stitcher_tpu_torch.experiments import remap_separable\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'video_stitcher_tpu' or m.startswith('video_stitcher_tpu.')]"
         "\nassert not bad, bad\n"
@@ -108,3 +110,7 @@ def test_cpu_calls_are_not_counted_as_launches():
     remap_strips(torch.zeros((1, 3, 4, 4)), torch.zeros((1, 2, 4, 4)),
                  torch.ones(1))
     assert remap_strips.launches == before
+    before = pass_v.launches
+    pass_v(torch.zeros((1, 3, 8, 256), dtype=torch.bfloat16),
+           torch.zeros((1, 2, 8, 128)))
+    assert pass_v.launches == before

@@ -3,7 +3,10 @@ handed across as arrays (``interop.state_from_numpy``) or as a checkpoint
 written by either package. The panoramas agree within 3/255 max abs (the
 reference's CUDA-vs-CPU bound, BASELINE.md:22) and score >= 40 dB against
 the synthetic scene. Covers stitch, stitch_nv12, stitch_out, stitch_batch
-and output, on the 6x320x180 ring and a 2-camera partial rig."""
+and output, on the 6x320x180 ring and a 2-camera partial rig, and the
+port's own calibration also on a 4x640x360 ring at compose scale 0.72 in
+both map conventions. A state swapped in during stitch_batch does not
+reach the batch that was already running."""
 
 import math
 
@@ -31,6 +34,9 @@ RING = dict(num_images=6, input_width=320, input_height=180,
 PAIR = dict(num_images=2, input_width=320, input_height=180,
             wrap_around=False, yaws=(0.0, math.pi / 3), enable_local=False,
             recalibrate=False)
+RING4_C012 = dict(num_images=4, input_width=640, input_height=360,
+                  compose_megapix=0.12, enable_local=False,
+                  recalibrate=False)
 
 
 def _scene_psnr(pano, scene, valid, u0=0.0):
@@ -125,6 +131,35 @@ def test_stitch_batch_matches_jax_and_per_frame(ring):
         np.testing.assert_array_equal(panos[i], st.stitch(batch[i]))
 
 
+def test_stitch_batch_blends_with_the_state_it_warped_with(ring,
+                                                           monkeypatch):
+    """A swap_state from another caller while a batch is being blended
+    reaches the next call, not the running batch."""
+    import video_stitcher_tpu_torch.pipeline.stitcher as stitcher_mod
+    st = Stitcher(StitcherConfig(**RING), device="cpu")
+    st.swap_state(ring["ports"]["arrays"].state)
+    old_state = st.state
+    new_state = old_state._replace(gains=old_state.gains * 0.5)
+    batch = np.stack([ring["frames"], ring["noisy"]])
+    want = [st.stitch(b) for b in batch]
+    original = stitcher_mod.blend_pack
+    swaps = []
+
+    def swapping_blend_pack(bands, state, geom):
+        if not swaps:
+            st.swap_state(new_state)
+            swaps.append(state)
+        return original(bands, state, geom)
+
+    monkeypatch.setattr(stitcher_mod, "blend_pack", swapping_blend_pack)
+    panos = st.stitch_batch(batch)
+    assert len(swaps) == 1 and st.state is not old_state
+    for got, ref in zip(panos, want):
+        np.testing.assert_array_equal(got, ref)
+    # the swap took effect for the next call
+    assert _diff(st.stitch(batch[0]), want[0]) > 0
+
+
 def test_port_checkpoint_loads_in_jax(ring, tmp_path):
     st, jst = ring["ports"]["arrays"], ring["jst"]
     path = str(tmp_path / "port_calib.npz")
@@ -159,3 +194,29 @@ def test_port_calibration_stitches_like_jax(rig):
     assert _scene_psnr(pano, scene, valid, geom.layout.u0) >= MIN_PSNR
     # no holes anywhere in the valid region (the scene is >= 10 everywhere)
     assert int((pano.max(axis=-1)[valid] < 5).sum()) == 0
+
+
+@pytest.mark.parametrize("convention", ["exact", "reference"])
+def test_port_calibration_at_compose_scale_stitches_like_jax(convention):
+    """Each package calibrates the 4x640x360 ring at compose scale 0.72
+    for itself (the JAX one op by op); the panoramas agree within 3/255
+    and score the same against the scene: 35.84 dB ("exact") and
+    32.62 dB ("reference", whose half-pixel bias the maps keep) for both
+    packages, below the 40 dB the other rigs reach, so the port is held
+    to the reference's score here."""
+    kw = dict(RING4_C012, map_convention=convention)
+    jcfg = JConfig(**kw)
+    geom, _ = j_plan(jcfg)
+    rng = np.random.default_rng(11)
+    scene = make_scene(geom.layout.pano_w, geom.layout.pano_h, rng)
+    frames = render_views(jcfg, geom, scene)
+    jst = JStitcher(jcfg)
+    with jax.disable_jit():
+        jst.calibrate(frames)
+    st = Stitcher(StitcherConfig(**kw), device="cpu")
+    st.calibrate(frames)
+    pano, jpano = st.stitch(frames), jst.stitch(frames)
+    assert _diff(pano, jpano) <= MAX_ABS
+    valid = st.state.valid_mask.numpy() > 0
+    assert _scene_psnr(pano, scene, valid) == pytest.approx(
+        _scene_psnr(jpano, scene, valid), abs=0.05)

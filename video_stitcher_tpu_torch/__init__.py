@@ -2,8 +2,10 @@
 
 A second package beside the JAX one (``video_stitcher_tpu``), which stays
 the reference it is tested against; this package imports nothing of it.
-Plain tensor code is PyTorch; the per-frame warp is a CUDA kernel written
-for Hopper (``csrc/remap_gain.cu``), built with nvcc at first use.
+Plain tensor code is PyTorch; each TPU kernel of the JAX package has a
+CUDA kernel written for Hopper in ``csrc/`` (the per-frame warp
+``remap_gain.cu``, the separable warp's vertical pass
+``remap_separable.cu``), built with nvcc at first use.
 """
 
 from video_stitcher_tpu_torch.config import StitcherConfig

@@ -11,7 +11,8 @@ backward maps with the gain and clamp in its store, the bands are blended
 
 from __future__ import annotations
 
-from typing import Optional
+import threading
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,7 +21,7 @@ from video_stitcher_tpu_torch.blend.multiband import (
     blend_bands, blend_feather,
 )
 from video_stitcher_tpu_torch.calib.calibration import (
-    StitchGeometry, calibrate, check_supported, plan_geometry,
+    StitchGeometry, calibrate, check_supported, plan_geometry, rebuild_aux,
 )
 from video_stitcher_tpu_torch.calib.state import (
     CalibState, load_state, save_state, state_to,
@@ -107,6 +108,9 @@ class Stitcher:
     >>> st = Stitcher(cfg); st.calibrate(frames); pano = st.stitch(frames)
 
     Runs on the card unless `device` names another (the tests pass "cpu").
+    `(geom, state, aux)` are installed together under a lock, and every
+    online call takes one snapshot of `(state, geom)` under it, so a
+    swap from another thread never mixes two states in one call.
     """
 
     def __init__(self, cfg: StitcherConfig, device=None):
@@ -115,29 +119,49 @@ class Stitcher:
         self.geom: Optional[StitchGeometry] = None
         self.state: Optional[CalibState] = None
         self.aux: Optional[dict] = None
+        self._swap_lock = threading.Lock()
 
     # --- calibration -------------------------------------------------
     def calibrate(self, frames: np.ndarray) -> None:
-        self.geom, self.state, self.aux = calibrate(
-            np.asarray(frames), self.cfg, self.device)
+        geom, state, aux = calibrate(np.asarray(frames), self.cfg,
+                                     self.device)
+        with self._swap_lock:
+            self.geom, self.state, self.aux = geom, state, aux
 
     def save_calibration(self, path: str) -> None:
-        save_state(path, self.state)
+        save_state(path, self._snapshot()[0])
 
     def load_calibration(self, path: str) -> None:
-        """Install a checkpoint written by either package's save_state."""
-        self.swap_state(load_state(path, self.device))
+        """Install a checkpoint written by either package's save_state,
+        with the aux rebuilt from the geometry (rebuild_aux)."""
+        geom = self.geom or plan_geometry(self.cfg)[0]
+        aux = rebuild_aux(self.cfg, geom, self.device)
+        state = self._on_device(geom, load_state(path, self.device))
+        with self._swap_lock:
+            self.geom, self.state, self.aux = geom, state, aux
 
     def swap_state(self, state: CalibState) -> None:
-        """Install a CalibState (moved to this stitcher's device). Maps
-        padded beyond the band (TPU strip-plan checkpoints) are cropped."""
-        if self.geom is None:
-            self.geom, _ = plan_geometry(self.cfg)
-        check_supported(self.cfg, self.geom)
-        lay = self.geom.layout
+        """Install a CalibState (moved to this stitcher's device) for the
+        same geometry; the aux stays."""
+        geom = self.geom or plan_geometry(self.cfg)[0]
+        state = self._on_device(geom, state)
+        with self._swap_lock:
+            self.geom, self.state = geom, state
+
+    def _on_device(self, geom: StitchGeometry, state: CalibState
+                   ) -> CalibState:
+        """The state on this stitcher's device. Maps padded beyond the
+        band (TPU strip-plan checkpoints) are cropped."""
+        check_supported(self.cfg, geom)
+        lay = geom.layout
         state = state_to(state, self.device)
-        self.state = state._replace(fused_maps=state.fused_maps[
+        return state._replace(fused_maps=state.fused_maps[
             :, :, :lay.band_h, :lay.band_w].contiguous())
+
+    def _snapshot(self) -> Tuple[CalibState, StitchGeometry]:
+        """The installed (state, geom), read together under the lock."""
+        with self._swap_lock:
+            return self.state, self.geom
 
     # --- online ------------------------------------------------------
     def _frames(self, frames) -> torch.Tensor:
@@ -147,7 +171,8 @@ class Stitcher:
         """frames u8 [N, H, W, 3] (or NV12 [N, H*3/2, W]) -> u8 pano
         [pano_h, pano_w, 3]. device=True returns the tensor on the device
         (no host transfer)."""
-        pano = stitch_pano(self._frames(frames), self.state, self.geom)
+        state, geom = self._snapshot()
+        pano = stitch_pano(self._frames(frames), state, geom)
         return pano if device else pano.cpu().numpy()
 
     def stitch_nv12(self, nv12, device: bool = False):
@@ -159,21 +184,20 @@ class Stitcher:
         """u8 [B, N, H, W, 3] (or NV12 [B, N, H*3/2, W]) -> u8 panos
         [B, pano_h, pano_w, 3], with ONE warp launch over the B*N cameras
         (the maps are reused cyclically)."""
+        state, geom = self._snapshot()
         f = self._frames(frames)
         b, n = f.shape[0], f.shape[1]
         bands = warp_bands(f.reshape((b * n,) + tuple(f.shape[2:])),
-                           self.state, self.geom)
+                           state, geom)
         bands = bands.reshape((b, n) + tuple(bands.shape[1:]))
-        panos = torch.stack([blend_pack(bb, self.state, self.geom)
-                             for bb in bands])
+        panos = torch.stack([blend_pack(bb, state, geom) for bb in bands])
         return panos if device else panos.cpu().numpy()
 
-    def _out_size(self):
+    def _out_size(self, geom: StitchGeometry):
         """Output frame size under the aspect policy (timed.cpp:254-292)."""
         cfg = self.cfg
         if cfg.keep_aspect_ratio:
-            oh = int(cfg.output_width / self.geom.pano_w * self.geom.pano_h
-                     + 0.5)
+            oh = int(cfg.output_width / geom.pano_w * geom.pano_h + 0.5)
             oh = min(oh, cfg.output_height)
         else:
             oh = cfg.output_height
@@ -184,10 +208,10 @@ class Stitcher:
         of an intermediate u8 one. device=True returns the device tensor
         before black-bar compositing; otherwise equivalent to
         output(stitch(frames)) up to that rounding."""
-        oh, ow = self._out_size()
-        frame = blend_resize_pack(
-            warp_bands(self._frames(frames), self.state, self.geom),
-            self.state, self.geom, oh, ow)
+        state, geom = self._snapshot()
+        oh, ow = self._out_size(geom)
+        frame = blend_resize_pack(warp_bands(self._frames(frames), state,
+                                             geom), state, geom, oh, ow)
         return frame if device else self.finalize_out(frame)
 
     def finalize_out(self, frame):
@@ -207,5 +231,5 @@ class Stitcher:
     def output(self, pano_u8):
         """pano -> final output frame at cfg.output_* with the aspect
         policy (timed.cpp:254-292)."""
-        oh, ow = self._out_size()
+        oh, ow = self._out_size(self._snapshot()[1])
         return self.finalize_out(output_frame(self._frames(pano_u8), oh, ow))
