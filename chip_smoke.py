@@ -2,17 +2,27 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from csrc/ (nvcc), calibrates the full-width
-6x1920x1080 rig (global warp, enable_local=False) from a synthetic scene
-made from a seed, stitches frame sets through stitch / stitch_nv12 /
-stitch_out / stitch_batch, and checks each result against the scene and
-against the port's plain versions. Then holds kernel K1 against its plain
-PyTorch version at the main path's shapes and times the path, K1, K1's
-plain version and the PyTorch library call that computes K1's function.
-Then drives the separable warp (pass_h, kernel K2) at the same rig from
-the calibrated state, holds K2 against its plain version and the path
+Builds the CUDA kernels from csrc/ (nvcc) and prints each one's ptxas
+report, calibrates the full-width 6x1920x1080 rig (global warp,
+enable_local=False) from a synthetic scene made from a seed, stitches
+frame sets through stitch / stitch_nv12 / stitch_out / stitch_batch, and
+checks each result against the scene and against the port's plain
+versions. Then holds kernel K1 against its plain PyTorch version at the
+main path's shapes, also on maps stretched so that one tile's taps span
+much of the source, and times the path, K1, K1's plain version and the
+PyTorch library call that computes K1's function. Then drives the
+separable warp (pass_h, kernel K2) at the same rig from the calibrated
+state, holds K2 against its plain version bit for bit and the path
 against K1, blends its bands, and times pass_h, K2, K2's plain version
 and the library call that computes K2's function.
+
+A kernel's `ms` (and `library_ms`) is its device time alone: the median
+over REPS calls of the device time of the kernels one call launches, from
+torch.profiler. `call_ms` is the median time between two CUDA events
+around one call (the host's checks and launch included); `plain_ms` is
+timed that way too. `bound_ms` counts the bytes this run's data needs:
+the output, the maps of the active tiles (the kernels read no map of an
+empty tile), the source pixels some tap reads, and the tile plan.
 
 Prints the card's name and power limit, one {"kernels": [...]} line, and
 as its last line {"ok": true, "device": {...}}. Exits non-zero, with no
@@ -41,7 +51,6 @@ F32_FLOPS = 67e12                  # H100 SXM, f32 outside the tensor cores
 BF16_FLOPS = 989e12                # H100 SXM, dense bf16 tensor cores
 K1_SOURCE = "video_stitcher_tpu_torch/csrc/remap_gain.cu"
 K1_REPLACES = "video_stitcher_tpu/ops/remap_strips.py:543"
-K2_ATOL = 1e-3         # K2 vs its plain version, both f32
 PASS_H_ATOL = 1.0      # bf16 pass_h vs the f32 product of the same inputs
                        # (experiments/test_remap_separable.py:49)
 SEP_VS_K1_ATOL = 2.0   # the separable warp vs K1, 0-255 scale: the bf16
@@ -87,6 +96,58 @@ def event_ms(fn, reps=REPS):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def kernel_ms(fn, reps=REPS):
+    """Median over reps calls of fn of the device time of the kernels one
+    call launches (torch.profiler's device entries): the kernels alone,
+    without the host's part of the call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.elapsed_us())
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    per_call = len(spans) // reps
+    if per_call == 0 or per_call * reps != len(spans):
+        raise RuntimeError(f"{len(spans)} device entries for {reps} calls")
+    return statistics.median(
+        sum(us for _, us in spans[i * per_call:(i + 1) * per_call]) / 1e3
+        for i in range(reps))
+
+
+def needed_source_bytes(x0, y0, h: int, w: int, channels: int,
+                        elem_size: int) -> int:
+    """Bytes of the source pixels some tap reads: camera m's taps from the
+    tap origins x0, y0 [n_maps, bh, bw] (each source read once)."""
+    n = x0.shape[0]
+    seen = torch.zeros(n * h * w, dtype=torch.bool, device=x0.device)
+    cam = torch.arange(n, device=x0.device)[:, None, None]
+    x0, y0 = x0.long(), y0.long()
+    for dy in (0, 1):
+        for dx in (0, 1):
+            x, y = x0 + dx, y0 + dy
+            ok = (x >= 0) & (x < w) & (y >= 0) & (y < h)
+            seen[((cam * h + y) * w + x)[ok]] = True
+    return int(seen.sum()) * channels * elem_size
+
+
+def tile_bytes(plan, bh: int, bw: int):
+    """(band pixels of the active tiles, bytes of the plan)."""
+    from video_stitcher_tpu_torch.ops.warp_tiles import TILE_H, TILE_W
+    _, ty, tx = plan.tiles
+    dev = plan.order.device
+    rows = torch.clamp(bh - torch.arange(ty, device=dev) * TILE_H,
+                       max=TILE_H)
+    cols = torch.clamp(bw - torch.arange(tx, device=dev) * TILE_W,
+                       max=TILE_W)
+    px = int(((rows[:, None] * cols[None])[None] * plan.active).sum())
+    return px, plan.order.numel() * 4
 
 
 def luma(rgb):
@@ -175,14 +236,18 @@ def edited_maps(maps: torch.Tensor, h: int, w: int):
     return m.contiguous(), dead
 
 
-def k1_bound_ms(src, maps, n_out_ch: int, n_out: int):
-    """Least time for K1's work on this card: each input read once, each
-    output written once, over the memory rate; vs ~40 f32 flops a band
-    pixel (tap weights, 4-tap blends, gain, clamp) over the f32 rate."""
-    bh, bw = maps.shape[2], maps.shape[3]
-    nbytes = (src.numel() * src.element_size() + maps.numel() * 4
-              + src.shape[0] * 4 + n_out * n_out_ch * bh * bw * 4)
-    return (*bound_ms(nbytes, 40.0 * n_out * bh * bw, F32_FLOPS), nbytes)
+def warp_bound_ms(plan, x0, y0, src, n_out: int, bh: int, bw: int,
+                  extra_bytes: int = 0):
+    """Least time for a warp kernel's work on this card: the f32 output
+    (3 channels) written once, the maps of the active tiles, the source
+    pixels some tap reads and the plan each read once, over the memory
+    rate; vs ~40 f32 flops a band pixel of an active tile (tap weights,
+    4-tap blends, gain, clamp) over the f32 rate."""
+    active_px, plan_bytes = tile_bytes(plan, bh, bw)
+    nbytes = (n_out * 3 * bh * bw * 4 + active_px * 8 + plan_bytes
+              + needed_source_bytes(x0, y0, src.shape[2], src.shape[3], 3,
+                                    src.element_size()) + extra_bytes)
+    return (*bound_ms(nbytes, 40.0 * active_px, F32_FLOPS), nbytes)
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float):
@@ -191,6 +256,19 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def stretched_maps(maps: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """The maps with a region whose tiles each span a quarter of the
+    source's width and half its height: far more than the ~96x28 source
+    pixels a calibrated tile reads."""
+    m = maps.clone()
+    bh = m.shape[2]
+    rows = slice(bh // 2 + 64, bh // 2 + 96)
+    m[:, 0, rows, 64:320] = torch.linspace(0, w - 1, 256, device=m.device)
+    m[:, 1, rows, 64:320] = torch.linspace(0, h - 1, 32,
+                                           device=m.device)[:, None]
+    return m.contiguous()
 
 
 def perturbed_maps(maps: np.ndarray) -> np.ndarray:
@@ -215,7 +293,7 @@ def k2_phase(st, frames, scene, valid, dev):
     from video_stitcher_tpu_torch.experiments import remap_separable as sep
     from video_stitcher_tpu_torch.pipeline.stitcher import (
         blend_pack, warp_bands)
-    state, geom = st.state, st.geom
+    state, geom, k1_plan = st._snapshot()
     log("phase K2 separable warp")
     t0 = time.perf_counter()
     fused = state.fused_maps.cpu().numpy()
@@ -240,16 +318,21 @@ def k2_phase(st, frames, scene, valid, dev):
                               + sep.LANE_PAD_R)
           and (plan.bh_p, plan.bw_p) == (bh, bw),
           "separable plan at the band's shape, no padding needed")
+    hp, wp = i1.shape[2], i1.shape[3]
+    tiles = sep.plan_pass_v(vmaps, hp, wp)
+    tiles_pert = sep.plan_pass_v(vmaps_pert, hp, wp)
+    log(f"  K2 tile plan: {tiles.counts()} (perturbed vmaps "
+        f"{tiles_pert.counts()})")
 
     # the path, counted from 0: pass_h + K2, gain and clamp, blend
     sep.pass_v.launches = 0
-    bands = torch.clamp(sep.warp_separable(src, wx, vmaps)[:, :, :bh, :bw]
-                        * gains, 0.0, 255.0)
+    bands = torch.clamp(sep.warp_separable(src, wx, vmaps, tiles)
+                        [:, :, :bh, :bw] * gains, 0.0, 255.0)
     pano = blend_pack(bands, state, geom).cpu().numpy()
     k2_launches = sep.pass_v.launches
     check(k2_launches == 1, f"the separable path ran through K2 "
           f"({k2_launches} launch)")
-    k1_bands = warp_bands(frames_dev, state, geom)
+    k1_bands = warp_bands(frames_dev, state, geom, k1_plan)
     d_k1 = float((bands - k1_bands).abs().max())
     check(d_k1 <= SEP_VS_K1_ATOL,
           f"separable warp x gains within {d_k1:.4f} of K1 "
@@ -269,16 +352,16 @@ def k2_phase(st, frames, scene, valid, dev):
 
     # K2 against its plain version, on the real and the perturbed maps
     k2_err = 0.0
-    for name, vm in (("calibrated vmaps", vmaps),
-                     ("perturbed vmaps", vmaps_pert)):
-        got = sep.pass_v(i1, vm)
+    for name, vm, tp in (("calibrated vmaps", vmaps, tiles),
+                         ("perturbed vmaps", vmaps_pert, tiles_pert)):
+        got = sep.pass_v(i1, vm, tp)
         want = sep.pass_v_plain(i1, vm)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         k2_err = max(k2_err, err)
-        check(got.shape == want.shape and err <= K2_ATOL,
-              f"K2 {name} {tuple(got.shape)}: max abs {err:.3g} "
-              f"<= {K2_ATOL}")
+        check(got.shape == want.shape and err == 0.0,
+              f"K2 {name} {tuple(got.shape)}: max abs {err:.3g}, bit "
+              f"for bit")
         dead = (vm[:, 1] == -2.0)[:, None].expand_as(got)
         check(bool(dead.any()) and float(got[dead].abs().max()) == 0.0,
               f"K2 {name}: the {int(dead[:, 0].sum())} invalid pixels "
@@ -289,7 +372,6 @@ def k2_phase(st, frames, scene, valid, dev):
     # times, and the library call computing K2's function: grid_sample
     # (bilinear, zeros, align_corners) on I1 in f32 (f32 weights)
     i1_f32 = i1.float()
-    hp, wp = i1.shape[2], i1.shape[3]
     grid = torch.stack([(vmaps[:, 0] + sep.XPAD) * (2.0 / (wp - 1)) - 1.0,
                         vmaps[:, 1] * (2.0 / (hp - 1)) - 1.0],
                        dim=-1).contiguous()
@@ -300,32 +382,34 @@ def k2_phase(st, frames, scene, valid, dev):
             align_corners=True)
     times = {
         "pass_h": event_ms(lambda: sep.pass_h(src, wx)),
-        "k2": event_ms(lambda: sep.pass_v(i1, vmaps)),
+        "k2": kernel_ms(lambda: sep.pass_v(i1, vmaps, tiles)),
+        "k2_call": event_ms(lambda: sep.pass_v(i1, vmaps, tiles)),
         "k2_plain": event_ms(lambda: sep.pass_v_plain(i1, vmaps)),
-        "library": event_ms(library),
+        "library": kernel_ms(library),
         "warp_separable": event_ms(lambda: sep.warp_separable(src, wx,
-                                                              vmaps)),
+                                                              vmaps, tiles)),
     }
-    lib_err = float((library() - sep.pass_v(i1, vmaps)).abs().max())
-    pixels = n * plan.bh_p * plan.bw_p
-    k2_bytes = i1.numel() * 2 + vmaps.numel() * 4 + 3 * pixels * 4
-    k2_bound, k2_by = bound_ms(k2_bytes, 40.0 * pixels, F32_FLOPS)
+    lib_err = float((library() - sep.pass_v(i1, vmaps, tiles)).abs().max())
+    k2_bound, k2_by, k2_bytes = warp_bound_ms(
+        tiles, *sep.tap_origins(vmaps, hp, wp), i1, n, bh, bw)
     h_flops = 2.0 * n * 3 * plan.i1_hp * geom.src_w * plan.bw_p
     h_bytes = src.numel() * 2 + wx.numel() * 2 + i1.numel() * 2
     h_bound, h_by = bound_ms(h_bytes, h_flops, BF16_FLOPS)
     log(f"  pass_h {times['pass_h']:.4f} ms, bound {h_bound:.4f} ms by "
         f"{h_by} ({h_flops:.4g} flops, {h_bytes} bytes)")
-    log(f"  K2 {times['k2']:.4f} ms, plain {times['k2_plain']:.4f} ms, "
-        f"library {times['library']:.4f} ms (max abs vs K2 {lib_err:.3g}); "
-        f"bound {k2_bound:.4f} ms by {k2_by} ({k2_bytes} bytes); "
-        f"warp_separable {times['warp_separable']:.4f} ms")
+    log(f"  K2 {times['k2']:.4f} ms on the card alone ({times['k2_call']:.4f}"
+        f" ms per call), plain {times['k2_plain']:.4f} ms, library "
+        f"{times['library']:.4f} ms on the card alone (max abs vs K2 "
+        f"{lib_err:.3g}); bound {k2_bound:.4f} ms by {k2_by} ({k2_bytes} "
+        f"bytes); warp_separable {times['warp_separable']:.4f} ms")
     entry = {
         "name": "K2 remap_separable pass_v", "route": "cuda",
         "source": K2_SOURCE, "replaces": K2_REPLACES,
         "launches": k2_launches, "max_abs_err": k2_err,
-        "ms": times["k2"], "plain_ms": times["k2_plain"],
-        "bound_ms": k2_bound, "bound_by": k2_by,
-        "library_ms": times["library"]}
+        "ms": times["k2"], "call_ms": times["k2_call"],
+        "plain_ms": times["k2_plain"], "bound_ms": k2_bound,
+        "bound_by": k2_by, "share": k2_bound / times["k2"],
+        "library_ms": times["library"], "tiles": tiles.counts()}
     metrics = {"separable_plan_s": plan_s, "separable_vs_k1_max_abs": d_k1,
                "psnr_separable_db": p_sep, "pass_h_max_abs": d_h,
                "pass_h_ms": times["pass_h"], "pass_h_bound_ms": h_bound,
@@ -348,7 +432,7 @@ def run(cfg, dev) -> int:
     from video_stitcher_tpu_torch.calib.calibration import plan_geometry
     from video_stitcher_tpu_torch.ops.color import rgb_to_nv12
     from video_stitcher_tpu_torch.ops.remap_strips import (
-        remap_strips, remap_strips_plain)
+        plan_remap, remap_strips, remap_strips_plain, tap_origins)
     from video_stitcher_tpu_torch.ops.resize import resize_planar
     from video_stitcher_tpu_torch.pipeline.stitcher import (
         _pack_u8_hwc, blend_f32, warp_bands)
@@ -365,6 +449,9 @@ def run(cfg, dev) -> int:
     built = _build.build()
     log(f"  build seconds {time.perf_counter() - t0:.3f} per kernel "
         f"{json.dumps(built)}")
+    for name in _build.KERNELS:
+        log(f"  ptxas, csrc/{name}.cu:\n    "
+            + _build.ptxas_report(name).replace("\n", "\n    "))
 
     # ---- main path at full width -------------------------------------
     log(f"phase main path ({cfg.num_images}x{cfg.input_width}x"
@@ -431,7 +518,8 @@ def run(cfg, dev) -> int:
                   max_abs_u8(batch[1], panos[1]))
     check(d_batch == 0, "stitch_batch equals per-frame stitch")
 
-    bands = warp_bands(torch.as_tensor(frames, device=dev), st.state, geom)
+    bands = warp_bands(torch.as_tensor(frames, device=dev), st.state, geom,
+                       st.plan)
     b32 = blend_bands(bands, st.state.weight_pyr, lay, st.state.valid_mask,
                       "highest").cpu().numpy()
     b16 = blend_bands(bands, st.state.weight_pyr, lay, st.state.valid_mask,
@@ -473,13 +561,24 @@ def run(cfg, dev) -> int:
     src_b = torch.cat([src_u8, torch.as_tensor(
         frames2, device=dev).permute(0, 3, 1, 2)]).contiguous()
     gains_b = gains.repeat(2)
+    stretched = stretched_maps(maps, geom.src_h, geom.src_w)
+    plans = {"edited": plan_remap(maps, geom.src_h, geom.src_w),
+             "stretched": plan_remap(stretched, geom.src_h, geom.src_w)}
+    log(f"  K1 tile plans: calibrated {st.plan.counts()}, edited "
+        f"{plans['edited'].counts()}, stretched "
+        f"{plans['stretched'].counts()}")
     k1_err = 0.0
-    for name, s, m, g in (("u8 source", src_u8, maps, gains),
-                          ("f32 source", src_f32, maps, gains),
-                          ("calibrated maps", src_u8, st.state.fused_maps,
-                           gains),
-                          ("batched N=12 n_maps=6", src_b, maps, gains_b)):
-        got = remap_strips(s, m, g)
+    for name, s, m, g, p in (
+            ("u8 source", src_u8, maps, gains, plans["edited"]),
+            ("f32 source", src_f32, maps, gains, plans["edited"]),
+            ("calibrated maps", src_u8, st.state.fused_maps, gains, st.plan),
+            ("batched N=12 n_maps=6", src_b, maps, gains_b,
+             plans["edited"]),
+            ("stretched maps", src_u8, stretched, gains,
+             plans["stretched"]),
+            ("stretched maps, plan built by K1", src_u8, stretched, gains,
+             None)):
+        got = remap_strips(s, m, g, p)
         want = remap_strips_plain(s, m, g)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
@@ -487,7 +586,8 @@ def run(cfg, dev) -> int:
         check(got.shape == want.shape and err <= K1_ATOL,
               f"K1 {name} {tuple(got.shape)}: max abs {err:.3g} "
               f"<= {K1_ATOL}")
-    zeros = remap_strips(src_u8, maps, gains)[:, :, dead[0], dead[1]]
+    zeros = remap_strips(src_u8, maps, gains, plans["edited"])[
+        :, :, dead[0], dead[1]]
     check(float(zeros.abs().max()) == 0.0, "K1 -1 region is exactly 0")
 
     # ---- times -----------------------------------------------------------
@@ -496,7 +596,9 @@ def run(cfg, dev) -> int:
     frames_dev = torch.as_tensor(frames, device=dev)
     stitch_out_ms = sync_ms(lambda: st.stitch_out(frames_dev, device=True))
     stitch_out_host_ms = sync_ms(lambda: st.stitch_out(frames))
-    k1_ms = event_ms(lambda: remap_strips(src_u8, fused, gains))
+    k1_ms = kernel_ms(lambda: remap_strips(src_u8, fused, gains, st.plan))
+    k1_call_ms = event_ms(lambda: remap_strips(src_u8, fused, gains,
+                                               st.plan))
     plain_ms = event_ms(lambda: remap_strips_plain(src_u8, fused, gains),
                         reps=REPS)
     # the library call computing K1's function: grid_sample (bilinear,
@@ -512,17 +614,18 @@ def run(cfg, dev) -> int:
             src_lib, grid, mode="bilinear", padding_mode="zeros",
             align_corners=True)
         return torch.clamp(out * gains[:, None, None, None], 0.0, 255.0)
-    lib_ms = event_ms(library)
-    lib_err = float((library() - remap_strips(src_u8, fused, gains)
+    lib_ms = kernel_ms(library)
+    lib_err = float((library() - remap_strips(src_u8, fused, gains, st.plan)
                      ).abs().max())
-    k1_bound, k1_by, nbytes = k1_bound_ms(src_u8, fused, 3,
-                                          src_u8.shape[0])
+    k1_bound, k1_by, nbytes = warp_bound_ms(
+        st.plan, *tap_origins(fused, geom.src_h, geom.src_w), src_u8,
+        src_u8.shape[0], bh, bw, extra_bytes=gains.numel() * 4)
     # where stitch_out's time goes, stage by stage (frames on the card)
     oh, ow = st._out_size(geom)
     pano_f32 = blend_f32(bands, st.state, geom)
     stages = {
         "warp (permute + K1)": event_ms(
-            lambda: warp_bands(frames_dev, st.state, geom)),
+            lambda: warp_bands(frames_dev, st.state, geom, st.plan)),
         "blend (pyramids + placement)": event_ms(
             lambda: blend_f32(bands, st.state, geom)),
         "resize + u8 pack": event_ms(
@@ -542,10 +645,10 @@ def run(cfg, dev) -> int:
         log(f"    {ms:.4f} ms/frame in {count} x {key}")
     log(f"  stitch_out per frame {stitch_out_ms:.4f} ms (frames on the "
         f"card), {stitch_out_host_ms:.4f} ms (host numpy in and out)")
-    log(f"  K1 {k1_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-        f"{lib_ms:.4f} ms (max abs vs K1 {lib_err:.3g}); bound "
-        f"{k1_bound:.4f} ms by {k1_by} ({nbytes} bytes); "
-        f"calibrate {calib_s:.3f} s")
+    log(f"  K1 {k1_ms:.4f} ms on the card alone ({k1_call_ms:.4f} ms per "
+        f"call), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms on the "
+        f"card alone (max abs vs K1 {lib_err:.3g}); bound {k1_bound:.4f} "
+        f"ms by {k1_by} ({nbytes} bytes); calibrate {calib_s:.3f} s")
     k2_entry, k2_metrics = k2_phase(st, frames, scene, valid, dev)
     log(json.dumps({"metrics": {
         "card": card, "calibrate_s": calib_s,
@@ -561,8 +664,10 @@ def run(cfg, dev) -> int:
     log(json.dumps({"kernels": [{
         "name": "K1 remap_gain", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": main_launches,
-        "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": plain_ms,
-        "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": lib_ms},
+        "max_abs_err": k1_err, "ms": k1_ms, "call_ms": k1_call_ms,
+        "plain_ms": plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
+        "share": k1_bound / k1_ms, "library_ms": lib_ms,
+        "tiles": st.plan.counts()},
         k2_entry]}))
     log(card)
     if FAILED:

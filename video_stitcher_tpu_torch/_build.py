@@ -2,9 +2,12 @@
 
 Each ``csrc/<name>.cu`` holds a plain C interface (no torch headers), so
 one ``nvcc`` call per source takes seconds. The shared library goes into
-``_build/`` (git-ignored) under a name that carries a hash of the source
-and the flags: it is rebuilt only when either changes, and reused
-otherwise. All stale sources compile in parallel, one ``nvcc`` each.
+``_build/`` (git-ignored) under a name that carries a hash of the source,
+of every ``csrc`` header it includes and of the flags: it is rebuilt only
+when one of them changes, and reused otherwise. All stale sources compile
+in parallel, one ``nvcc`` each. Beside each library lies the ptxas report
+of its build (``ptxas_report``: registers, shared memory and spills of
+each kernel).
 """
 
 from __future__ import annotations
@@ -13,18 +16,20 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("remap_gain", "remap_separable")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def _nvcc() -> str:
@@ -37,12 +42,37 @@ def _nvcc() -> str:
                        "host with the CUDA toolkit (set CUDA_HOME)")
 
 
+def sources(name: str) -> List[Path]:
+    """csrc/<name>.cu and every header it includes by a quoted path, at
+    any depth."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path not in found:
+            found.append(path)
+            todo += [path.parent / inc
+                     for inc in _INCLUDE.findall(path.read_text())
+                     if (path.parent / inc).is_file()]
+    return found
+
+
 def library_path(name: str) -> Path:
-    """Where the shared library of csrc/<name>.cu lives for this source."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where the shared library of csrc/<name>.cu lives for this source,
+    its headers and the flags."""
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def ptxas_report(name: str) -> str:
+    """The ptxas lines of the build of csrc/<name>.cu's library: each
+    kernel's entry, registers, shared memory and spills."""
+    log = library_path(name).with_suffix(".ptxas.txt").read_text()
+    keep = ("Compiling entry", "registers", "spill")
+    return "\n".join(line.strip() for line in log.splitlines()
+                     if any(k in line for k in keep))
 
 
 def build(names: Sequence[str] = KERNELS) -> Dict[str, float]:
@@ -69,6 +99,7 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, float]:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                                    f"(exit {proc.returncode}):\n{log}")
+            lib.with_suffix(".ptxas.txt").write_text(log)
             os.replace(tmp, lib)
             seconds[name] = time.perf_counter() - t0
     finally:

@@ -14,107 +14,109 @@
 // I1 adds exactly 0, so the -2 marker of invalid pixels gives 0. Its plain
 // version is experiments/remap_separable.py::pass_v_plain.
 //
-// What bounds it: memory. Per call it must read I1 (bf16) and the two map
-// floats of every band pixel, and write three f32 channels. At the 6x1080p
-// rig (bands 1664x1280, I1 1792x1088) that is 70 MB + 102 MB + 153 MB,
-// ~326 MB, about 97 us at 3.35 TB/s. The arithmetic (a few dozen flops a
-// pixel) is far below the card's rate.
+// What bounds it: memory. Per call it must write three f32 channels of
+// every band pixel and read the vmaps of the pixels whose taps reach I1,
+// and the I1 (bf16) pixels those taps read. At the 6x1080p rig (bands
+// 1664x1280, I1 1792x1088) that is 153 MB of output, ~55 MB of the maps of
+// the ~54% of tiles that are active and up to 70 MB of I1. The arithmetic
+// (a few dozen flops a pixel) is far below the card's rate.
 //
-// Design: one thread per output pixel, x fastest in a 32x8 block, so a warp
-// reads 32 neighbouring map entries and writes 32 neighbouring outputs
-// (coalesced); each thread reads its map pair once, computes its weights
-// once and loops over the channels, gathering its 2x2 taps through L1.
-// The TPU kernel's strip DMAs, row windows and tent-weight matmuls exist
-// for the TPU's lane tiling and are not carried over.
+// What held the one-thread-per-pixel kernel this replaces at a third of
+// that bound, and below grid_sample on the same function (PERF.md, section 6):
+// the dependent, masked scalar tap loads after scalar map loads, threads
+// that loaded maps only to write zeros, and a runtime division for the
+// chunk base in every thread. The design is K1's (warp_tiles.cuh): a tile
+// plan lets the empty tiles write zeros without reading their vmaps;
+// persistent blocks keep the next active tile's vmaps coming into a
+// shared-memory ring by cp.async.bulk while the current tile gathers its
+// taps through L1; each thread reads the vmaps of 4 pixels as two 16-byte
+// vectors and writes them per channel as one 16-byte streaming store. A
+// thread's 4 pixels share one 32-column chunk, whose base is a mask of
+// the column: no division.
 //
 // Built by nvcc into a shared library with a plain C interface (no torch
 // headers) and called through ctypes; see video_stitcher_tpu_torch/_build.py.
 
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "warp_tiles.cuh"
 
 namespace {
 
-constexpr int kBlockX = 32;
-constexpr int kBlockY = 8;
-
-__device__ __forceinline__ float load_bf16(const uint16_t* p) {
-  return __uint_as_float(static_cast<uint32_t>(__ldg(p)) << 16);
-}
+constexpr int kChunkW = 32;   // the TPU kernel's column chunk (CHUNK_W)
+static_assert(warp_tiles::kTileW % kChunkW == 0
+                  && kChunkW % warp_tiles::kVec == 0,
+              "a thread's pixels must share one chunk");
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-__global__ void __launch_bounds__(kBlockX * kBlockY)
-pass_v_kernel(const uint16_t* __restrict__ i1, const float* __restrict__ vmaps,
-              float* __restrict__ out, int channels, int hp, int wp, int bh,
-              int bw, int xpad, int chunk_w) {
-  const int x = blockIdx.x * kBlockX + threadIdx.x;
-  const int y = blockIdx.y * kBlockY + threadIdx.y;
-  const int n = blockIdx.z;
-  if (x >= bw || y >= bh) return;
+struct PassV {
+  using T = __nv_bfloat16;
+  struct Ctx {};
+  struct Pixel {
+    int x0, y0;
+    float wx0, wx1, wy0, wy1;
+  };
+  const T* src;   // I1
+  int h, w;       // padded I1 rows and lanes
+  int xpad;
 
-  const int64_t plane = static_cast<int64_t>(bh) * bw;
-  const int64_t o = static_cast<int64_t>(y) * bw + x;
-  const float* mp = vmaps + static_cast<int64_t>(n) * 2 * plane;
-  // The TPU kernel's x arithmetic: the tent is evaluated relative to the
-  // first lane of the output column's chunk_w window (band x = base),
-  // which decides where f32 rounds. Outside padded lanes [-2, wp + 1] and
-  // rows [-2, hp + 1] every tap is out, so clamping there changes nothing.
-  const int base = (x / chunk_w) * chunk_w - xpad;
-  const float lx = fminf(fmaxf(__ldg(mp + o), -2.0f - xpad),
-                         wp + 1.0f - xpad) - static_cast<float>(base);
-  const float ly = fminf(fmaxf(__ldg(mp + plane + o), -2.0f), hp + 1.0f);
-  const float kx = floorf(lx);
-  const float ky = floorf(ly);
-  const float wx0 = round_bf16(__fsub_rn(1.0f, __fsub_rn(lx, kx)));
-  const float wx1 = round_bf16(__fsub_rn(1.0f, __fsub_rn(kx + 1.0f, lx)));
-  const float wy0 = __fsub_rn(1.0f, __fsub_rn(ly, ky));
-  const float wy1 = __fsub_rn(1.0f, __fsub_rn(ky + 1.0f, ly));
-  const int x0 = static_cast<int>(kx) + base + xpad;   // padded lane
-  const int y0 = static_cast<int>(ky);
-  const int x1 = x0 + 1;
-  const int y1 = y0 + 1;
-  const bool vx0 = x0 >= 0 && x0 < wp;
-  const bool vx1 = x1 >= 0 && x1 < wp;
-  const bool vy0 = y0 >= 0 && y0 < hp;
-  const bool vy1 = y1 >= 0 && y1 < hp;
-  const int64_t r0 = static_cast<int64_t>(y0) * wp;
-  const int64_t r1 = static_cast<int64_t>(y1) * wp;
+  __device__ Ctx tile(int) const { return {}; }
 
-  const int64_t src_plane = static_cast<int64_t>(hp) * wp;
-  const uint16_t* s = i1 + static_cast<int64_t>(n) * channels * src_plane;
-  float* d = out + static_cast<int64_t>(n) * channels * plane + o;
-  for (int c = 0; c < channels; ++c) {
-    const float v00 = (vy0 && vx0) ? load_bf16(s + r0 + x0) : 0.0f;
-    const float v01 = (vy0 && vx1) ? load_bf16(s + r0 + x1) : 0.0f;
-    const float v10 = (vy1 && vx0) ? load_bf16(s + r1 + x0) : 0.0f;
-    const float v11 = (vy1 && vx1) ? load_bf16(s + r1 + x1) : 0.0f;
+  __device__ Pixel pixel(float mx, float my, int x) const {
+    // The TPU kernel's x arithmetic: the tent is evaluated relative to the
+    // first lane of the output column's chunk (band x = base), which
+    // decides where f32 rounds. Outside padded lanes [-2, w + 1] and rows
+    // [-2, h + 1] every tap is out, so clamping there changes nothing.
+    const int base = (x & ~(kChunkW - 1)) - xpad;
+    const float lx = fminf(fmaxf(mx, -2.0f - xpad), w + 1.0f - xpad)
+                     - static_cast<float>(base);
+    const float ly = fminf(fmaxf(my, -2.0f), h + 1.0f);
+    const float kx = floorf(lx);
+    const float ky = floorf(ly);
+    return {static_cast<int>(kx) + base + xpad,   // padded lane
+            static_cast<int>(ky),
+            round_bf16(__fsub_rn(1.0f, __fsub_rn(lx, kx))),
+            round_bf16(__fsub_rn(1.0f, __fsub_rn(kx + 1.0f, lx))),
+            __fsub_rn(1.0f, __fsub_rn(ly, ky)),
+            __fsub_rn(1.0f, __fsub_rn(ky + 1.0f, ly))};
+  }
+
+  __device__ float blend(const Ctx&, const Pixel& p, float v00, float v01,
+                         float v10, float v11) const {
     // explicit roundings, no fused multiply-add: the sums round where the
     // plain version's (and the TPU kernel's) do
-    const float h0 = __fadd_rn(__fmul_rn(wx0, v00), __fmul_rn(wx1, v01));
-    const float h1 = __fadd_rn(__fmul_rn(wx0, v10), __fmul_rn(wx1, v11));
-    d[c * plane] = __fadd_rn(__fmul_rn(wy0, h0), __fmul_rn(wy1, h1));
-    s += src_plane;
+    const float h0 = __fadd_rn(__fmul_rn(p.wx0, v00), __fmul_rn(p.wx1, v01));
+    const float h1 = __fadd_rn(__fmul_rn(p.wx0, v10), __fmul_rn(p.wx1, v11));
+    return __fadd_rn(__fmul_rn(p.wy0, h0), __fmul_rn(p.wy1, h1));
   }
-}
+};
 
 }  // namespace
 
 // i1: bf16 [n, channels, hp, wp]; vmaps: f32 [n, 2, bh, bw]; out: f32
 // [n, channels, bh, bw]; wp = bw + xpad + right pad; chunk_w the width of
-// the TPU kernel's column chunks. All contiguous, on the current device.
-// Returns the cudaError_t of the launch (0 = success).
+// the TPU kernel's column chunks (32); order: int32 [n * tiles_y *
+// tiles_x], the tile plan of the vmaps (ops/warp_tiles.py), its first
+// n_active tiles active. All contiguous, on the current device, vmaps
+// 16-byte aligned; channels 3, bw a multiple of 4. Returns the
+// cudaError_t of the launch (0 = success).
 extern "C" int remap_separable_v(const void* i1, const void* vmaps, void* out,
-                                 int n, int channels, int hp, int wp, int bh,
-                                 int bw, int xpad, int chunk_w, void* stream) {
-  const dim3 block(kBlockX, kBlockY, 1);
-  const dim3 grid((bw + kBlockX - 1) / kBlockX, (bh + kBlockY - 1) / kBlockY,
-                  n);
-  pass_v_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(i1), static_cast<const float*>(vmaps),
-      static_cast<float*>(out), channels, hp, wp, bh, bw, xpad, chunk_w);
-  return static_cast<int>(cudaGetLastError());
+                                 const void* order, int n_active, int n,
+                                 int channels, int hp, int wp, int bh, int bw,
+                                 int xpad, int chunk_w, void* stream) {
+  if (channels != warp_tiles::kChannels || chunk_w != kChunkW)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PassV op{static_cast<const __nv_bfloat16*>(i1), hp, wp, xpad};
+  warp_tiles::Plan p;
+  p.order = static_cast<const int*>(order);
+  p.n_active = n_active;
+  p.n_maps = n;
+  p.tiles_x = (bw + warp_tiles::kTileW - 1) / warp_tiles::kTileW;
+  p.tiles_y = (bh + warp_tiles::kTileH - 1) / warp_tiles::kTileH;
+  p.n_tiles = n * p.tiles_x * p.tiles_y;
+  p.n_items = p.n_tiles;
+  const warp_tiles::Band b{static_cast<const float*>(vmaps),
+                           static_cast<float*>(out), bh, bw};
+  return warp_tiles::launch(op, p, b, stream);
 }

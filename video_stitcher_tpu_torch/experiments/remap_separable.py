@@ -29,8 +29,10 @@ schedule (``strip_off``, ``chunk_row``, ``sh``, ``whc``) only orders its
 DMAs and is not carried; ``plan_separable`` still rejects maps whose
 rows the TPU kernel's row windows could not cover.
 
-A tensor on the CPU goes through ``pass_v_plain``; a CUDA tensor goes
-through K2 or raises.
+K2 walks the tile plan of its vmaps (``plan_pass_v``,
+``ops/warp_tiles.py``), built once by the caller that keeps its vmaps,
+otherwise by each call. A tensor on the CPU goes through
+``pass_v_plain``; a CUDA tensor goes through K2 or raises.
 """
 
 from __future__ import annotations
@@ -41,6 +43,10 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from video_stitcher_tpu_torch.ops.warp_tiles import (
+    TilePlan, check_launchable, plan_tiles,
+)
 
 ROW_BLOCK = 8
 CHUNK_W = 32
@@ -279,36 +285,65 @@ def pass_v_plain(i1: torch.Tensor, vmaps: torch.Tensor) -> torch.Tensor:
     return wy0 * h0 + wy1 * h1
 
 
+def tap_origins(vmaps: torch.Tensor, hp: int, wp: int):
+    """The top-left tap (padded lane x0, row y0) of each pixel's 2x2
+    footprint in I1, f32 [N, bh, bw] each, as K2 computes it
+    (``pass_v_plain``'s arithmetic; a NaN clamps to the low bound, as
+    fmaxf does)."""
+    bw = vmaps.shape[3]
+    base = ((torch.arange(bw, device=vmaps.device) // CHUNK_W) * CHUNK_W
+            - XPAD).to(torch.float32)
+    lo_x = -2.0 - XPAD
+    lx = torch.clamp(torch.nan_to_num(vmaps[:, 0], nan=lo_x), lo_x,
+                     wp + 1.0 - XPAD) - base
+    ly = torch.clamp(torch.nan_to_num(vmaps[:, 1], nan=-2.0), -2.0,
+                     hp + 1.0)
+    return torch.floor(lx) + base + XPAD, torch.floor(ly)
+
+
+def plan_pass_v(vmaps: torch.Tensor, hp: int, wp: int) -> TilePlan:
+    """K2's tile plan of vmaps f32 [N, 2, bh, bw] over an I1 of hp rows
+    and wp padded lanes, on the vmaps' device."""
+    return plan_tiles(*tap_origins(vmaps, hp, wp), hp, wp)
+
+
 def _lib_fn():
     from video_stitcher_tpu_torch import _build
     fn = _build.load("remap_separable").remap_separable_v
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def pass_v(i1: torch.Tensor, vmaps: torch.Tensor) -> torch.Tensor:
+def pass_v(i1: torch.Tensor, vmaps: torch.Tensor,
+           plan: TilePlan | None = None) -> torch.Tensor:
     """K2: i1 bf16 [N, C, Hp, bw + XPAD + LANE_PAD_R] (``pass_h``'s
-    output), vmaps f32 [N, 2, bh, bw] -> f32 [N, C, bh, bw]. Counts its
-    CUDA launches in ``pass_v.launches``."""
+    output), vmaps f32 [N, 2, bh, bw] -> f32 [N, C, bh, bw]; `plan` is
+    ``plan_pass_v`` of these vmaps and this I1 size, built here when None.
+    Counts its CUDA launches in ``pass_v.launches``."""
     _check(i1, vmaps)
     if i1.device.type == "cpu":
         return pass_v_plain(i1, vmaps)
     if i1.device.type != "cuda":
         raise ValueError(f"no K2 kernel for device {i1.device}")
-    for name, t in (("i1", i1), ("vmaps", vmaps)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     n, ch, hp, wp = i1.shape
     bh, bw = vmaps.shape[2], vmaps.shape[3]
+    if plan is None:
+        plan = plan_pass_v(vmaps, hp, wp)
+    plan.check(n, bh, bw, hp, wp, vmaps.device)
+    check_launchable("K2", vmaps, {"i1": i1, "plan order": plan.order}, ch,
+                     bw)
     out = torch.empty((n, ch, bh, bw), dtype=torch.float32, device=i1.device)
+    if out.numel() == 0:
+        return out
     with torch.cuda.device(i1.device):
         fn = _lib_fn()
         stream = torch.cuda.current_stream(i1.device).cuda_stream
-        err = fn(i1.data_ptr(), vmaps.data_ptr(), out.data_ptr(), n, ch, hp,
-                 wp, bh, bw, XPAD, CHUNK_W, stream)
+        err = fn(i1.data_ptr(), vmaps.data_ptr(), out.data_ptr(),
+                 plan.order.data_ptr(), plan.n_active, n, ch, hp, wp, bh, bw,
+                 XPAD, CHUNK_W, stream)
     if err != 0:
         raise RuntimeError(f"K2 remap_separable launch failed: cudaError "
                            f"{err}")
@@ -320,7 +355,8 @@ pass_v.launches = 0
 
 
 def warp_separable(src: torch.Tensor, wx_bf16: torch.Tensor,
-                   vmaps: torch.Tensor) -> torch.Tensor:
+                   vmaps: torch.Tensor,
+                   plan: TilePlan | None = None) -> torch.Tensor:
     """The two-pass warp: src bf16 [N, C, Hp, S] -> bands f32
-    [N, C, bh, bw]."""
-    return pass_v(pass_h(src, wx_bf16), vmaps)
+    [N, C, bh, bw]; `plan` as for ``pass_v``."""
+    return pass_v(pass_h(src, wx_bf16), vmaps, plan)

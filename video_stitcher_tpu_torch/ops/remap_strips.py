@@ -12,6 +12,10 @@ maps f32 [n_maps, 2, bh, bw] (x then y, in source pixels, -1 = invalid);
 gains f32 [N]; N a multiple of n_maps (batched frame sets reuse the maps
 cyclically). Returns f32 [N, C, bh, bw].
 
+The kernel walks the tile plan of the maps (``plan_remap``,
+``ops/warp_tiles.py``): the caller that keeps its maps builds it once
+(``Stitcher`` does, with its state), otherwise each call builds it.
+
 A tensor on the CPU goes through ``remap_strips_plain``; a CUDA tensor goes
 through the kernel or raises.
 """
@@ -23,6 +27,9 @@ import ctypes
 import torch
 
 from video_stitcher_tpu_torch.ops.remap import remap_planar
+from video_stitcher_tpu_torch.ops.warp_tiles import (
+    TilePlan, check_launchable, plan_tiles,
+)
 
 _SYMBOLS = {torch.uint8: "remap_gain_u8", torch.float32: "remap_gain_f32"}
 
@@ -54,35 +61,58 @@ def remap_strips_plain(src, maps, gains):
     return torch.clamp(bands * gains[:, None, None, None], 0.0, 255.0)
 
 
+def tap_origins(maps: torch.Tensor, src_h: int, src_w: int):
+    """The top-left tap (x0, y0) of each pixel's 2x2 footprint, f32
+    [n_maps, bh, bw] each, as K1 computes it: the coordinate clamped to
+    [-2, size + 1] (a NaN to -2, as fmaxf does), then floored."""
+    mx = torch.clamp(torch.nan_to_num(maps[:, 0], nan=-2.0), -2.0,
+                     src_w + 1.0)
+    my = torch.clamp(torch.nan_to_num(maps[:, 1], nan=-2.0), -2.0,
+                     src_h + 1.0)
+    return torch.floor(mx), torch.floor(my)
+
+
+def plan_remap(maps: torch.Tensor, src_h: int, src_w: int) -> TilePlan:
+    """K1's tile plan of maps f32 [n_maps, 2, bh, bw] over a src_h x src_w
+    source, on the maps' device."""
+    return plan_tiles(*tap_origins(maps, src_h, src_w), src_h, src_w)
+
+
 def _lib_fn(dtype):
     from video_stitcher_tpu_torch import _build
     fn = getattr(_build.load("remap_gain"), _SYMBOLS[dtype])
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def remap_strips(src, maps, gains):
-    """K1 (see the module docstring). Counts its CUDA launches in
-    ``remap_strips.launches``."""
+def remap_strips(src, maps, gains, plan: TilePlan | None = None):
+    """K1 (see the module docstring): `plan` is ``plan_remap`` of these
+    maps and this source size, built here when None. Counts its CUDA
+    launches in ``remap_strips.launches``."""
     _check(src, maps, gains)
     if src.device.type == "cpu":
         return remap_strips_plain(src, maps, gains)
     if src.device.type != "cuda":
         raise ValueError(f"no K1 kernel for device {src.device}")
-    for name, t in (("src", src), ("maps", maps), ("gains", gains)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     n, c, h, w = src.shape
     n_maps, _, bh, bw = maps.shape
+    if plan is None:
+        plan = plan_remap(maps, h, w)
+    plan.check(n_maps, bh, bw, h, w, maps.device)
+    check_launchable("K1", maps, {"src": src, "gains": gains,
+                                  "plan order": plan.order}, c, bw)
     out = torch.empty((n, c, bh, bw), dtype=torch.float32, device=src.device)
+    if out.numel() == 0:
+        return out
     with torch.cuda.device(src.device):
         fn = _lib_fn(src.dtype)
         stream = torch.cuda.current_stream(src.device).cuda_stream
         err = fn(src.data_ptr(), maps.data_ptr(), gains.data_ptr(),
-                 out.data_ptr(), n, n_maps, c, h, w, bh, bw, stream)
+                 out.data_ptr(), plan.order.data_ptr(), plan.n_active, n,
+                 n_maps, c, h, w, bh, bw, stream)
     if err != 0:
         raise RuntimeError(f"K1 remap_gain launch failed: cudaError {err}")
     remap_strips.launches += 1

@@ -6,7 +6,9 @@ per-frame chain upload -> resize -> remap -> gain -> feed -> blend,
 360_stitcher/timed.cpp:56-152). Per frame set: the frames go to the device,
 K1 (``ops/remap_strips.remap_strips``) warps all cameras through the fused
 backward maps with the gain and clamp in its store, the bands are blended
-(``blend/multiband.py``) and the result is packed to u8.
+(``blend/multiband.py``) and the result is packed to u8. K1 walks the
+maps' tile plan (``ops/warp_tiles.py``), which the stitcher builds with
+each state it installs.
 """
 
 from __future__ import annotations
@@ -28,8 +30,11 @@ from video_stitcher_tpu_torch.calib.state import (
 )
 from video_stitcher_tpu_torch.config import StitcherConfig
 from video_stitcher_tpu_torch.ops.color import nv12_to_rgb_planar
-from video_stitcher_tpu_torch.ops.remap_strips import remap_strips
+from video_stitcher_tpu_torch.ops.remap_strips import (
+    plan_remap, remap_strips,
+)
 from video_stitcher_tpu_torch.ops.resize import resize_planar
+from video_stitcher_tpu_torch.ops.warp_tiles import TilePlan
 
 
 def resolve_device(device=None) -> torch.device:
@@ -52,16 +57,18 @@ def _warp_source(frames_u8: torch.Tensor) -> torch.Tensor:
 
 
 def warp_bands(frames_u8: torch.Tensor, state: CalibState,
-               geom: StitchGeometry) -> torch.Tensor:
+               geom: StitchGeometry,
+               plan: Optional[TilePlan] = None) -> torch.Tensor:
     """Frames -> gain-compensated warped bands f32 [N, 3, bh, bw] through
-    one K1 launch. N may be B * n_maps (batched frame sets reuse the maps
+    one K1 launch, over `plan` (the state's tile plan; built by K1 when
+    None). N may be B * n_maps (batched frame sets reuse the maps
     cyclically; the gains are tiled to match)."""
     src = _warp_source(frames_u8)
     n_maps = state.fused_maps.shape[0]
     gains = state.gains
     if src.shape[0] != n_maps:
         gains = gains.repeat(src.shape[0] // n_maps)
-    return remap_strips(src, state.fused_maps, gains)
+    return remap_strips(src, state.fused_maps, gains, plan)
 
 
 def blend_f32(bands, state: CalibState, geom: StitchGeometry):
@@ -91,9 +98,10 @@ def blend_resize_pack(bands, state: CalibState, geom: StitchGeometry,
     return _pack_u8_hwc(resize_planar(pano, out_h, out_w))
 
 
-def stitch_pano(frames_u8, state: CalibState, geom: StitchGeometry):
+def stitch_pano(frames_u8, state: CalibState, geom: StitchGeometry,
+                plan: Optional[TilePlan] = None):
     """Full per-frame stitch -> u8 panorama [pano_h, pano_w, 3]."""
-    return blend_pack(warp_bands(frames_u8, state, geom), state, geom)
+    return blend_pack(warp_bands(frames_u8, state, geom, plan), state, geom)
 
 
 def output_frame(pano_u8, out_h: int, out_w: int):
@@ -108,9 +116,10 @@ class Stitcher:
     >>> st = Stitcher(cfg); st.calibrate(frames); pano = st.stitch(frames)
 
     Runs on the card unless `device` names another (the tests pass "cpu").
-    `(geom, state, aux)` are installed together under a lock, and every
-    online call takes one snapshot of `(state, geom)` under it, so a
-    swap from another thread never mixes two states in one call.
+    `(geom, state, aux)` and the state's tile plan are installed together
+    under a lock, and every online call takes one snapshot of
+    `(state, geom, plan)` under it, so a swap from another thread never
+    mixes two states, or a state and another state's plan, in one call.
     """
 
     def __init__(self, cfg: StitcherConfig, device=None):
@@ -119,14 +128,17 @@ class Stitcher:
         self.geom: Optional[StitchGeometry] = None
         self.state: Optional[CalibState] = None
         self.aux: Optional[dict] = None
+        self.plan: Optional[TilePlan] = None
         self._swap_lock = threading.Lock()
 
     # --- calibration -------------------------------------------------
     def calibrate(self, frames: np.ndarray) -> None:
         geom, state, aux = calibrate(np.asarray(frames), self.cfg,
                                      self.device)
+        plan = self._plan(geom, state)
         with self._swap_lock:
-            self.geom, self.state, self.aux = geom, state, aux
+            self.geom, self.state, self.aux, self.plan = (geom, state, aux,
+                                                          plan)
 
     def save_calibration(self, path: str) -> None:
         save_state(path, self._snapshot()[0])
@@ -137,16 +149,19 @@ class Stitcher:
         geom = self.geom or plan_geometry(self.cfg)[0]
         aux = rebuild_aux(self.cfg, geom, self.device)
         state = self._on_device(geom, load_state(path, self.device))
+        plan = self._plan(geom, state)
         with self._swap_lock:
-            self.geom, self.state, self.aux = geom, state, aux
+            self.geom, self.state, self.aux, self.plan = (geom, state, aux,
+                                                          plan)
 
     def swap_state(self, state: CalibState) -> None:
         """Install a CalibState (moved to this stitcher's device) for the
         same geometry; the aux stays."""
         geom = self.geom or plan_geometry(self.cfg)[0]
         state = self._on_device(geom, state)
+        plan = self._plan(geom, state)
         with self._swap_lock:
-            self.geom, self.state = geom, state
+            self.geom, self.state, self.plan = geom, state, plan
 
     def _on_device(self, geom: StitchGeometry, state: CalibState
                    ) -> CalibState:
@@ -158,10 +173,16 @@ class Stitcher:
         return state._replace(fused_maps=state.fused_maps[
             :, :, :lay.band_h, :lay.band_w].contiguous())
 
-    def _snapshot(self) -> Tuple[CalibState, StitchGeometry]:
-        """The installed (state, geom), read together under the lock."""
+    @staticmethod
+    def _plan(geom: StitchGeometry, state: CalibState) -> TilePlan:
+        """K1's tile plan of the state's maps (never checkpointed)."""
+        return plan_remap(state.fused_maps, geom.src_h, geom.src_w)
+
+    def _snapshot(self) -> Tuple[CalibState, StitchGeometry, TilePlan]:
+        """The installed (state, geom, plan), read together under the
+        lock."""
         with self._swap_lock:
-            return self.state, self.geom
+            return self.state, self.geom, self.plan
 
     # --- online ------------------------------------------------------
     def _frames(self, frames) -> torch.Tensor:
@@ -171,8 +192,8 @@ class Stitcher:
         """frames u8 [N, H, W, 3] (or NV12 [N, H*3/2, W]) -> u8 pano
         [pano_h, pano_w, 3]. device=True returns the tensor on the device
         (no host transfer)."""
-        state, geom = self._snapshot()
-        pano = stitch_pano(self._frames(frames), state, geom)
+        state, geom, plan = self._snapshot()
+        pano = stitch_pano(self._frames(frames), state, geom, plan)
         return pano if device else pano.cpu().numpy()
 
     def stitch_nv12(self, nv12, device: bool = False):
@@ -184,11 +205,11 @@ class Stitcher:
         """u8 [B, N, H, W, 3] (or NV12 [B, N, H*3/2, W]) -> u8 panos
         [B, pano_h, pano_w, 3], with ONE warp launch over the B*N cameras
         (the maps are reused cyclically)."""
-        state, geom = self._snapshot()
+        state, geom, plan = self._snapshot()
         f = self._frames(frames)
         b, n = f.shape[0], f.shape[1]
         bands = warp_bands(f.reshape((b * n,) + tuple(f.shape[2:])),
-                           state, geom)
+                           state, geom, plan)
         bands = bands.reshape((b, n) + tuple(bands.shape[1:]))
         panos = torch.stack([blend_pack(bb, state, geom) for bb in bands])
         return panos if device else panos.cpu().numpy()
@@ -208,10 +229,10 @@ class Stitcher:
         of an intermediate u8 one. device=True returns the device tensor
         before black-bar compositing; otherwise equivalent to
         output(stitch(frames)) up to that rounding."""
-        state, geom = self._snapshot()
+        state, geom, plan = self._snapshot()
         oh, ow = self._out_size(geom)
         frame = blend_resize_pack(warp_bands(self._frames(frames), state,
-                                             geom), state, geom, oh, ow)
+                                             geom, plan), state, geom, oh, ow)
         return frame if device else self.finalize_out(frame)
 
     def finalize_out(self, frame):
