@@ -3,18 +3,30 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from csrc/ (nvcc) and prints each one's ptxas
-report, calibrates the full-width 6x1920x1080 rig (global warp,
-enable_local=False) from a synthetic scene made from a seed, stitches
-frame sets through stitch / stitch_nv12 / stitch_out / stitch_batch, and
-checks each result against the scene and against the port's plain
-versions. Then holds kernel K1 against its plain PyTorch version at the
-main path's shapes, also on maps stretched so that one tile's taps span
-much of the source, and times the path, K1, K1's plain version and the
-PyTorch library call that computes K1's function. Then drives the
-separable warp (pass_h, kernel K2) at the same rig from the calibrated
-state, holds K2 against its plain version bit for bit and the path
-against K1, blends its bands, and times pass_h, K2, K2's plain version
-and the library call that computes K2's function.
+report, calibrates the full-width 6x1920x1080 rig with the default
+configuration (StitcherConfig(): the CPW mesh on, so calibrate ends in
+the first mesh solve, whose estimation warp runs K1) from a synthetic
+scene made from a seed, stitches frame sets through stitch / stitch_nv12
+/ stitch_out / stitch_batch, and checks each result against the scene
+and against the port's plain versions. Then the local calibration's
+numbers (mesh solve, matched seams, mesh displacement, K1 on the
+estimation warp), a live re-solve (recalibrate_mesh on perturbed frames,
+its tile plan, interpolate_states through K1, one update_masks
+re-solve), and K1 held against its plain PyTorch version at the main
+path's shapes, also on maps stretched so that one tile's taps span much
+of the source; times the path, K1, K1's plain version and the PyTorch
+library call that computes K1's function. Then drives the separable warp
+(pass_h, kernel K2) at the same rig from the global-only state, holds K2
+against its plain version bit for bit and the path against K1, blends
+its bands, and times pass_h, K2, K2's plain version and the library call
+that computes K2's function. Last, the prewarp path of the JAX package's
+BASELINE config 4 (6x3840x2160 -> 7680x3840, keep_aspect_ratio,
+add_black_bars, global warp): K1 on the f32 source resized to compose
+scale, held against its plain version and timed against its bound, and
+stitch_out from RGB and NV12.
+
+Each path runs with the launch counts set to 0 just before it and read
+just after.
 
 A kernel's `ms` (and `library_ms`) is its device time alone: the median
 over REPS calls of the device time of the kernels one call launches, from
@@ -99,9 +111,12 @@ def event_ms(fn, reps=REPS):
 
 
 def kernel_ms(fn, reps=REPS):
-    """Median over reps calls of fn of the device time of the kernels one
-    call launches (torch.profiler's device entries): the kernels alone,
-    without the host's part of the call."""
+    """Device time of the kernels one call of fn launches, the kernels
+    alone without the host's part of the call: from torch.profiler's
+    device entries over reps calls, for each kernel its median entry
+    times the entries it has per call, summed. (The profiler has been
+    seen to leave out two entries of a window, so the window is not cut
+    into calls.)"""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -110,15 +125,20 @@ def kernel_ms(fn, reps=REPS):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.elapsed_us())
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    per_call = len(spans) // reps
-    if per_call == 0 or per_call * reps != len(spans):
-        raise RuntimeError(f"{len(spans)} device entries for {reps} calls")
-    return statistics.median(
-        sum(us for _, us in spans[i * per_call:(i + 1) * per_call]) / 1e3
-        for i in range(reps))
+    by_kernel = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_kernel.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    if not by_kernel:
+        raise RuntimeError(f"no device entries for {reps} calls")
+    total = 0.0
+    for name, us in by_kernel.items():
+        per_call = max(1, round(len(us) / reps))
+        if len(us) != per_call * reps:
+            log(f"  (profiler: {len(us)} entries of {name[:40]} for {reps} "
+                f"calls, counted {per_call} per call)")
+        total += per_call * statistics.median(us)
+    return total / 1e3
 
 
 def needed_source_bytes(x0, y0, h: int, w: int, channels: int,
@@ -288,12 +308,15 @@ def perturbed_maps(maps: np.ndarray) -> np.ndarray:
 
 def k2_phase(st, frames, scene, valid, dev):
     """The separable warp at the main path's rig: plan from the calibrated
-    state, drive pass_h + K2 and blend, check, time. Returns (the K2 entry
-    of the kernels line, metrics)."""
+    global-only state (its maps have the column structure the separable
+    plan is built for), drive pass_h + K2 and blend, check, time. Returns
+    (the K2 entry of the kernels line, metrics)."""
     from video_stitcher_tpu_torch.experiments import remap_separable as sep
+    from video_stitcher_tpu_torch.ops.remap_strips import plan_remap
     from video_stitcher_tpu_torch.pipeline.stitcher import (
         blend_pack, warp_bands)
-    state, geom, k1_plan = st._snapshot()
+    geom, state = st.geom, st.state_global
+    k1_plan = plan_remap(state.fused_maps, geom.warp_src_h, geom.warp_src_w)
     log("phase K2 separable warp")
     t0 = time.perf_counter()
     fused = state.fused_maps.cpu().numpy()
@@ -418,15 +441,307 @@ def k2_phase(st, frames, scene, valid, dev):
     return entry, metrics
 
 
+def mesh_disp_stats(pipe, frames):
+    """(median, max) |backward displacement| in px of the mesh the
+    pipeline solves from frames, densified to the band."""
+    from video_stitcher_tpu_torch.mesh.mesh2map import upsample_backward_disp
+    lay = pipe.geom.layout
+    disp = pipe.run(frames)
+    if disp is None:
+        return float("nan"), float("nan")
+    maps = upsample_backward_disp(torch.as_tensor(disp, device=pipe.device),
+                                  lay.band_h, lay.band_w)
+    gx = torch.arange(lay.band_w, device=pipe.device, dtype=torch.float32)
+    gy = torch.arange(lay.band_h, device=pipe.device, dtype=torch.float32)
+    d = torch.stack([(maps[:, 0] - gx).abs(),
+                     (maps[:, 1] - gy[:, None]).abs()])
+    return float(d.median()), float(d.max())
+
+
+def local_phase(st, frames, scene, valid, p_rgb, calib_s, mesh_s, dev):
+    """The local calibration: the first mesh solve's numbers, K1 on the
+    estimation warp against its plain version, the global-only psnr.
+    Returns metrics."""
+    from video_stitcher_tpu_torch.ops.remap_strips import (
+        plan_remap, remap_strips, remap_strips_plain)
+    from video_stitcher_tpu_torch.pipeline.stitcher import (
+        _warp_source, stitch_pano)
+    log("phase local calibration (CPW mesh)")
+    state, geom, _ = st._snapshot()
+    pipe = st._mesh_pipe
+    seams = sum(m is not None and len(m.p1) > 0
+                for m in pipe.solver.old_matches)
+    frames_dev = torch.as_tensor(frames, device=dev)
+    glob_plan = plan_remap(st.state_global.fused_maps, geom.warp_src_h,
+                           geom.warp_src_w)
+    pano_g = stitch_pano(frames_dev, st.state_global, geom,
+                         glob_plan).cpu().numpy()
+    p_glob = scene_psnr(pano_g, scene, valid)
+    src = _warp_source(frames_dev, geom)
+    got = pipe.warp(frames_dev)
+    want = remap_strips_plain(src, pipe.global_maps, pipe.ones)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    d_med, d_max = mesh_disp_stats(pipe, frames)
+    log(f"  calibrate {calib_s:.3f} s, of which the first mesh solve "
+        f"{mesh_s:.3f} s; seams with matches {seams} of "
+        f"{geom.num_images}; mesh |displacement| median {d_med:.4f} px, "
+        f"max {d_max:.4f} px")
+    log(f"  psnr vs scene: stitch {p_rgb:.4f} dB with the mesh, "
+        f"{p_glob:.4f} dB global-only")
+    check(seams >= geom.num_images // 2, f"{seams} seams with matches")
+    check(d_med < 3.0 and d_max < 25.0, "mesh near identity on the "
+          "parallax-free rig (median < 3 px, max < 25 px)")
+    check(got.shape == want.shape and err <= K1_ATOL,
+          f"K1 estimation warp (gain 1) {tuple(got.shape)}: max abs "
+          f"{err:.3g} <= {K1_ATOL}")
+    return {"calibrate_s": calib_s, "mesh_solve_s": mesh_s,
+            "seams_with_matches": seams, "mesh_disp_median_px": d_med,
+            "mesh_disp_max_px": d_max, "psnr_stitch_global_only_db": p_glob,
+            "k1_estimation_warp_max_abs": err}
+
+
+def resolve_phase(st, frames, frames2, dev):
+    """The live re-solve: recalibrate_mesh on perturbed frames (timed), the
+    plan installed with it, interpolate_states through K1 on the mixed
+    maps, one update_masks re-solve. Returns (K1's largest error against
+    its plain version here, metrics)."""
+    import dataclasses
+    from video_stitcher_tpu_torch.ops.remap_strips import (
+        plan_remap, remap_strips, remap_strips_plain)
+    from video_stitcher_tpu_torch.pipeline.stitcher import _warp_source
+    log("phase live re-solve")
+    times, installed = [], []
+    for _ in range(3):
+        old = st.state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        installed.append(st.recalibrate_mesh(frames2))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    recal_s = statistics.median(times)
+    log(f"  recalibrate_mesh {recal_s:.4f} s (median of 3: "
+        f"{[round(t, 4) for t in times]}) against recalib_del_ms "
+        f"{st.cfg.recalib_del_ms}")
+    check(all(installed), "recalibrate_mesh installed a mesh each time")
+    state, geom, plan = st._snapshot()
+    want = plan_remap(state.fused_maps, geom.warp_src_h, geom.warp_src_w)
+    check(plan.n_active == want.n_active
+          and torch.equal(plan.order, want.order),
+          f"the installed plan is plan_remap of the installed maps "
+          f"({plan.counts()})")
+    solved = state
+    mixed = st.interpolate_states(st.state_global, state, 0.5)
+    st.swap_state(mixed)
+    state_m, _, plan_m = st._snapshot()
+    src = _warp_source(torch.as_tensor(frames, device=dev), geom)
+    got = remap_strips(src, state_m.fused_maps, state_m.gains, plan_m)
+    want_m = remap_strips_plain(src, state_m.fused_maps, state_m.gains)
+    torch.cuda.synchronize()
+    err = float((got - want_m).abs().max())
+    check(err <= K1_ATOL, f"K1 on interpolate_states(global, mesh, 0.5)'s "
+          f"maps: max abs {err:.3g} <= {K1_ATOL} (tiles {plan_m.counts()}:"
+          f" samples outside at either end are pinned to -1)")
+    st.swap_state(solved)
+    pano_fixed = st.stitch(frames)
+    cfg = st.cfg
+    st.cfg = dataclasses.replace(cfg, update_masks=True)
+    try:
+        t0 = time.perf_counter()
+        ok = st.recalibrate_mesh(frames)
+        torch.cuda.synchronize()
+        upd_s = time.perf_counter() - t0
+    finally:
+        st.cfg = cfg
+    valid = st.state.valid_mask.cpu().numpy() > 0
+    pano = st.stitch(frames)
+    zeros = int((pano.max(-1)[valid] == 0).sum())
+    dark = int(((pano.astype(np.int32).sum(-1) < 8)
+                & (pano_fixed.astype(np.int32).sum(-1) > 60) & valid).sum())
+    log(f"  update_masks re-solve {upd_s:.4f} s: {zeros} zero pano pixels "
+        f"inside valid_mask, {dark} newly dark")
+    check(ok and zeros == 0 and dark == 0,
+          "update_masks: no pano pixel at zero inside valid_mask")
+    st.swap_state(solved)       # the re-solved mesh, default weights
+    return err, {"recalibrate_mesh_s": recal_s,
+                 "recalibrate_mesh_s_runs": times,
+                 "recalib_del_ms": st.cfg.recalib_del_ms,
+                 "interpolate_k1_max_abs": err,
+                 "update_masks_recalibrate_s": upd_s}
+
+
+def prewarp_phase(cfg4, dev, small4):
+    """BASELINE config 4 through the prewarp path: calibrate, stitch_out
+    from RGB and NV12 (K1 on the f32 source at compose size), black bars,
+    K1 against its plain version, its time and bound; and the card
+    against the host plain path on a small prewarp rig. Returns (metrics,
+    the prewarp entry of K1's line)."""
+    from video_stitcher_tpu_torch import Stitcher
+    from video_stitcher_tpu_torch.calib.calibration import plan_geometry
+    from video_stitcher_tpu_torch.ops.color import rgb_to_nv12
+    from video_stitcher_tpu_torch.ops.remap_strips import (
+        remap_strips, remap_strips_plain, tap_origins)
+    from video_stitcher_tpu_torch.pipeline.stitcher import _warp_source
+    from video_stitcher_tpu_torch.utils.synth import make_scene, render_views
+    log(f"phase prewarp ({cfg4.num_images}x{cfg4.input_width}x"
+        f"{cfg4.input_height} -> {cfg4.output_width}x{cfg4.output_height}, "
+        f"keep_aspect_ratio, add_black_bars, enable_local="
+        f"{cfg4.enable_local})")
+    geom4, _ = plan_geometry(cfg4)
+    lay = geom4.layout
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    scene = make_scene(lay.pano_w, lay.pano_h, rng)
+    frames = render_views(cfg4, geom4, scene)
+    frames_dev = torch.as_tensor(frames, device=dev)
+    nv12_dev = rgb_to_nv12(frames_dev)
+    nv12 = nv12_dev.cpu().numpy()
+    log(f"  synthetic rig {time.perf_counter() - t0:.3f} s: compose "
+        f"{geom4.compose_w}x{geom4.compose_h} (scale "
+        f"{geom4.compose_scale:.4f}, prewarp {geom4.prewarp}), pano "
+        f"{lay.pano_w}x{lay.pano_h}, bands {lay.band_w}x{lay.band_h}")
+    check(geom4.prewarp, "BASELINE config 4 takes the prewarp path")
+    st = Stitcher(cfg4, device=dev)
+    t0 = time.perf_counter()
+    st.calibrate(frames)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+
+    remap_strips.launches = 0
+    out = st.stitch_out(frames)
+    out_nv12 = st.stitch_out(nv12)
+    pano = st.stitch(frames)
+    launches = remap_strips.launches
+    check(launches == 3, f"the prewarp path ran through K1 ({launches} "
+          f"launches in 3 calls)")
+    oh, ow = st._out_size(geom4)
+    y0 = cfg4.output_height // 2 - oh // 2
+    bars = np.concatenate([out[:y0], out[y0 + oh:]])
+    check(out.shape == (cfg4.output_height, cfg4.output_width, 3)
+          and bars.size > 0 and int(bars.max()) == 0
+          and int(out_nv12[:y0].max()) == 0,
+          f"output {out.shape}: frame {oh}x{ow} at row {y0}, black bars "
+          f"exactly 0")
+    valid = st.state.valid_mask.cpu().numpy() > 0
+    p4 = scene_psnr(pano, scene, valid)
+    p4_y = scene_psnr(st.stitch(nv12), scene, valid, luma)
+    log(f"  calibrate {calib_s:.3f} s; psnr vs scene: stitch {p4:.4f} dB, "
+        f"stitch_nv12 luma {p4_y:.4f} dB (not gated: the JAX package "
+        f"scores ~34.8 dB on its CPU prewarp rig, tests/"
+        f"test_torch_prewarp.py; parity with the host is gated below)")
+
+    state, _, plan = st._snapshot()
+    src = _warp_source(frames_dev, geom4)
+    src_nv = _warp_source(nv12_dev, geom4)
+    check(src.dtype == torch.float32 and tuple(src.shape) == (
+        cfg4.num_images, 3, geom4.compose_h, geom4.compose_w),
+        f"prewarped source {tuple(src.shape)} {src.dtype}")
+    err = 0.0
+    for name, s_ in (("RGB", src), ("NV12", src_nv)):
+        got = remap_strips(s_, state.fused_maps, state.gains, plan)
+        want = remap_strips_plain(s_, state.fused_maps, state.gains)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        err = max(err, e)
+        check(e <= K1_ATOL, f"K1 on the f32 prewarped {name} source "
+              f"{tuple(got.shape)}: max abs {e:.3g} <= {K1_ATOL}")
+    fused, gains = state.fused_maps, state.gains
+    k1_ms = kernel_ms(lambda: remap_strips(src, fused, gains, plan))
+    k1_call = event_ms(lambda: remap_strips(src, fused, gains, plan))
+    plain_ms = event_ms(lambda: remap_strips_plain(src, fused, gains))
+    hs, ws = src.shape[2], src.shape[3]
+    grid = torch.stack([fused[:, 0] * (2.0 / (ws - 1)) - 1.0,
+                        fused[:, 1] * (2.0 / (hs - 1)) - 1.0],
+                       dim=-1).contiguous()
+
+    def library():
+        o = torch.nn.functional.grid_sample(
+            src, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True)
+        return torch.clamp(o * gains[:, None, None, None], 0.0, 255.0)
+    lib_ms = kernel_ms(library)
+    bound, by, nbytes = warp_bound_ms(
+        plan, *tap_origins(fused, hs, ws), src, src.shape[0],
+        fused.shape[2], fused.shape[3], extra_bytes=gains.numel() * 4)
+    prep_ms = event_ms(lambda: _warp_source(frames_dev, geom4))
+    prep_nv_ms = event_ms(lambda: _warp_source(nv12_dev, geom4))
+    out_ms = sync_ms(lambda: st.stitch_out(frames_dev, device=True))
+    out_nv_ms = sync_ms(lambda: st.stitch_out(nv12_dev, device=True))
+    out_host_ms = sync_ms(lambda: st.stitch_out(frames))
+    out_nv_host_ms = sync_ms(lambda: st.stitch_out(nv12))
+    log(f"  K1 on the f32 prewarped source {k1_ms:.4f} ms on the card "
+        f"alone ({k1_call:.4f} ms per call), plain {plain_ms:.4f} ms, "
+        f"library {lib_ms:.4f} ms on the card alone; bound {bound:.4f} ms "
+        f"by {by} ({nbytes} bytes), share {bound / k1_ms:.4f}; tiles "
+        f"{plan.counts()}")
+    log(f"  source prep (resize to compose): RGB {prep_ms:.4f} ms, NV12 "
+        f"{prep_nv_ms:.4f} ms")
+    log(f"  stitch_out per frame: RGB {out_ms:.4f} ms, NV12 "
+        f"{out_nv_ms:.4f} ms (frames on the card); RGB {out_host_ms:.4f} "
+        f"ms, NV12 {out_nv_host_ms:.4f} ms (host numpy in and out)")
+
+    # the card against the host plain path on a small prewarp rig
+    sgeom, _ = plan_geometry(small4)
+    srng = np.random.default_rng(5)
+    sscene = make_scene(sgeom.layout.pano_w, sgeom.layout.pano_h, srng)
+    sframes = render_views(small4, sgeom, sscene)
+    snv12 = rgb_to_nv12(torch.as_tensor(sframes)).numpy()
+    on_card, on_host = Stitcher(small4, device=dev), Stitcher(small4,
+                                                              device="cpu")
+    on_card.calibrate(sframes)
+    on_host.calibrate(sframes)
+    d_small = max(max_abs_u8(on_card.stitch_out(f), on_host.stitch_out(f))
+                  for f in (sframes, snv12))
+    check(sgeom.prewarp and d_small <= MAX_ABS_U8,
+          f"{small4.num_images}x{small4.input_width}x{small4.input_height} "
+          f"prewarp rig, stitch_out RGB and NV12: card within {d_small} of "
+          f"the host plain path")
+    entry = {"ms": k1_ms, "call_ms": k1_call, "plain_ms": plain_ms,
+             "bound_ms": bound, "bound_by": by, "share": bound / k1_ms,
+             "library_ms": lib_ms, "max_abs_err": err,
+             "launches": launches, "tiles": plan.counts(),
+             "source": list(src.shape)}
+    metrics = {"prewarp_calibrate_s": calib_s, "prewarp_psnr_stitch_db": p4,
+               "prewarp_psnr_stitch_nv12_luma_db": p4_y,
+               "prewarp_source_prep_ms": prep_ms,
+               "prewarp_source_prep_nv12_ms": prep_nv_ms,
+               "prewarp_stitch_out_ms": out_ms,
+               "prewarp_stitch_out_nv12_ms": out_nv_ms,
+               "prewarp_stitch_out_host_ms": out_host_ms,
+               "prewarp_stitch_out_nv12_host_ms": out_nv_host_ms,
+               "prewarp_small_rig_max_abs": d_small}
+    return metrics, entry
+
+
+def baseline_config4():
+    """The JAX package's BASELINE config 4 (bench.py::p_4k): 6-camera 4K
+    in, 8K out, keep_aspect_ratio + add_black_bars, global warp."""
+    from video_stitcher_tpu_torch import StitcherConfig
+    return StitcherConfig(input_width=3840, input_height=2160,
+                          output_width=7680, output_height=3840,
+                          keep_aspect_ratio=True, add_black_bars=True,
+                          enable_local=False)
+
+
+def small_prewarp_rig():
+    """tests/test_torch_prewarp.py's rig: 4x640x360 at compose scale 0.35."""
+    from video_stitcher_tpu_torch import StitcherConfig
+    return StitcherConfig(num_images=4, input_width=640, input_height=360,
+                          compose_megapix=0.04, enable_local=False,
+                          output_width=960, output_height=400,
+                          keep_aspect_ratio=True, add_black_bars=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from video_stitcher_tpu_torch import StitcherConfig
-    return run(StitcherConfig(enable_local=False), torch.device("cuda"))
+    return run(StitcherConfig(), torch.device("cuda"), baseline_config4(),
+               small_prewarp_rig())
 
 
-def run(cfg, dev) -> int:
+def run(cfg, dev, cfg4, small4) -> int:
     from video_stitcher_tpu_torch import Stitcher, StitcherConfig, _build
     from video_stitcher_tpu_torch.blend.multiband import blend_bands
     from video_stitcher_tpu_torch.calib.calibration import plan_geometry
@@ -471,6 +786,16 @@ def run(cfg, dev) -> int:
         f"{lay.band_w}x{lay.band_h}, levels {lay.num_bands}")
 
     st = Stitcher(cfg, device=dev)
+    mesh_s = []
+    solve = st.recalibrate_mesh
+
+    def timed_solve(f):
+        t = time.perf_counter()
+        out = solve(f)
+        torch.cuda.synchronize()
+        mesh_s.append(time.perf_counter() - t)
+        return out
+    st.recalibrate_mesh = timed_solve      # calibrate's first mesh solve
     remap_strips.launches = 0
     counts = []
 
@@ -484,17 +809,24 @@ def run(cfg, dev) -> int:
     st.calibrate(frames)
     torch.cuda.synchronize()
     calib_s = time.perf_counter() - t0
-    log(f"  calibrate {calib_s:.3f} s")
+    del st.recalibrate_mesh
+    calib_launches = remap_strips.launches
+    log(f"  calibrate {calib_s:.3f} s (first mesh solve "
+        f"{sum(mesh_s):.3f} s), K1 launches {calib_launches}")
+    check(len(mesh_s) == int(cfg.enable_local) and calib_launches == len(
+        mesh_s), "calibrate solved the mesh once, its estimation warp "
+        "through K1")
     panos = [counted(st.stitch, f) for f in (frames, frames2, frames)]
     panos_nv12 = [counted(st.stitch_nv12, nv12) for _ in range(2)]
     outs = [counted(st.stitch_out, f) for f in (frames, frames2)]
     batch = counted(st.stitch_batch, np.stack([frames, frames2]))
     main_launches = remap_strips.launches
-    log(f"  K1 launches on the main path: {main_launches} "
-        f"(per call {counts})")
+    log(f"  K1 launches on the main path: {main_launches} (calibrate "
+        f"{calib_launches}, per stitch* call {counts})")
     check(all(c == 1 for c in counts),
           "K1 launched exactly once per stitch* call")
-    check(main_launches == len(counts) > 0, "the main path ran through K1")
+    check(main_launches == len(counts) + calib_launches > 0,
+          "the main path ran through K1")
 
     # ---- what came out ------------------------------------------------
     log("phase results")
@@ -517,6 +849,9 @@ def run(cfg, dev) -> int:
     d_batch = max(max_abs_u8(batch[0], panos[0]),
                   max_abs_u8(batch[1], panos[1]))
     check(d_batch == 0, "stitch_batch equals per-frame stitch")
+    local_metrics = local_phase(st, frames, scene, valid, p_rgb, calib_s,
+                                sum(mesh_s), dev)
+    resolve_err, resolve_metrics = resolve_phase(st, frames, frames2, dev)
 
     bands = warp_bands(torch.as_tensor(frames, device=dev), st.state, geom,
                        st.plan)
@@ -552,6 +887,7 @@ def run(cfg, dev) -> int:
     # ---- K1 against its plain version at the main path's shapes --------
     log("phase K1 vs plain")
     maps, dead = edited_maps(st.state.fused_maps, geom.src_h, geom.src_w)
+    k1_err = resolve_metrics["interpolate_k1_max_abs"]
     src_u8 = torch.as_tensor(frames, device=dev).permute(0, 3, 1, 2
                                                          ).contiguous()
     from video_stitcher_tpu_torch.ops.color import nv12_to_rgb_planar
@@ -567,7 +903,6 @@ def run(cfg, dev) -> int:
     log(f"  K1 tile plans: calibrated {st.plan.counts()}, edited "
         f"{plans['edited'].counts()}, stretched "
         f"{plans['stretched'].counts()}")
-    k1_err = 0.0
     for name, s, m, g, p in (
             ("u8 source", src_u8, maps, gains, plans["edited"]),
             ("f32 source", src_f32, maps, gains, plans["edited"]),
@@ -650,6 +985,7 @@ def run(cfg, dev) -> int:
         f"card alone (max abs vs K1 {lib_err:.3g}); bound {k1_bound:.4f} "
         f"ms by {k1_by} ({nbytes} bytes); calibrate {calib_s:.3f} s")
     k2_entry, k2_metrics = k2_phase(st, frames, scene, valid, dev)
+    pw_metrics, pw_entry = prewarp_phase(cfg4, dev, small4)
     log(json.dumps({"metrics": {
         "card": card, "calibrate_s": calib_s,
         "stitch_out_ms": stitch_out_ms,
@@ -659,15 +995,22 @@ def run(cfg, dev) -> int:
         "bf16_vs_f32_blend_db": p16, "bf16_vs_f32_blend_u8_max_abs": d16,
         "stage_ms": stages, "stitch_out_card_busy_share": busy,
         "stitch_out_kernels_per_frame": kernels_per_frame,
-        "build_s": built, **k2_metrics}}))
+        "build_s": built, "k1_launches_calibrate": calib_launches,
+        **local_metrics, **resolve_metrics, **k2_metrics, **pw_metrics}}))
 
     log(json.dumps({"kernels": [{
         "name": "K1 remap_gain", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": main_launches,
-        "max_abs_err": k1_err, "ms": k1_ms, "call_ms": k1_call_ms,
+        "max_abs_err": max(k1_err, local_metrics[
+            "k1_estimation_warp_max_abs"], pw_entry["max_abs_err"]),
+        "ms": k1_ms, "call_ms": k1_call_ms,
         "plain_ms": plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
         "share": k1_bound / k1_ms, "library_ms": lib_ms,
-        "tiles": st.plan.counts()},
+        "tiles": st.plan.counts(),
+        "launches_by_path": {"calibrate (mesh estimation warp)":
+                             calib_launches, "stitch*": len(counts),
+                             "prewarp": pw_entry["launches"]},
+        "prewarp_f32_source": pw_entry},
         k2_entry]}))
     log(card)
     if FAILED:

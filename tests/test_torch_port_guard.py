@@ -36,6 +36,8 @@ def test_import_pulls_in_no_jax():
         "from video_stitcher_tpu_torch import interop, _build\n"
         "from video_stitcher_tpu_torch.utils import synth\n"
         "from video_stitcher_tpu_torch.experiments import remap_separable\n"
+        "from video_stitcher_tpu_torch.mesh import pipeline, cpw, mesh2map\n"
+        "from video_stitcher_tpu_torch.features import orb, match, ransac\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'video_stitcher_tpu' or m.startswith('video_stitcher_tpu.')]"
         "\nassert not bad, bad\n"
@@ -46,8 +48,16 @@ def test_import_pulls_in_no_jax():
     assert out.stdout.strip() == "ok"
 
 
-@pytest.mark.parametrize("path", sorted(
-    str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")))
+SOURCES = sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py"))
+
+
+def test_source_scan_reaches_every_subpackage():
+    dirs = {pathlib.Path(p).parent.name for p in SOURCES}
+    assert {"features", "mesh", "calib", "ops", "pipeline"} <= dirs
+    assert "video_stitcher_tpu_torch/mesh/cpw.py" in SOURCES
+
+
+@pytest.mark.parametrize("path", SOURCES)
 def test_source_imports_no_jax(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
@@ -82,10 +92,17 @@ def test_stitcher_defaults_to_the_card():
 
 
 def test_unported_paths_raise():
+    """enable_local and prewarp are ported; sharding and the debug
+    visualisations are not."""
     frames = np.zeros((2, 36, 64, 3), np.uint8)
-    cfg = StitcherConfig(num_images=2, input_width=64, input_height=36)
-    with pytest.raises(NotImplementedError, match="enable_local"):
-        Stitcher(cfg, device="cpu").calibrate(frames)
+    for option, match in ((dict(camera_shards=2), "camera_shards"),
+                          (dict(visualize_matches=True), "visualize"),
+                          (dict(visualize_mesh=True), "visualize")):
+        cfg = StitcherConfig(num_images=2, input_width=64, input_height=36,
+                             **option)
+        assert cfg.enable_local
+        with pytest.raises(NotImplementedError, match=match):
+            Stitcher(cfg, device="cpu").calibrate(frames)
 
 
 def test_remap_strips_checks_its_inputs():

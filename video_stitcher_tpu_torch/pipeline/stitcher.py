@@ -8,7 +8,10 @@ K1 (``ops/remap_strips.remap_strips``) warps all cameras through the fused
 backward maps with the gain and clamp in its store, the bands are blended
 (``blend/multiband.py``) and the result is packed to u8. K1 walks the
 maps' tile plan (``ops/warp_tiles.py``), which the stitcher builds with
-each state it installs.
+each state it installs. Under prewarp the frames are first resized to
+compose scale (planar f32, which K1 takes as it is). With the CPW mesh on
+(``enable_local``, the default) ``calibrate`` ends in the first mesh
+solve, and ``recalibrate_mesh`` re-solves it live.
 """
 
 from __future__ import annotations
@@ -20,16 +23,22 @@ import numpy as np
 import torch
 
 from video_stitcher_tpu_torch.blend.multiband import (
-    blend_bands, blend_feather,
+    blend_bands, blend_feather, build_weight_pyramids,
 )
 from video_stitcher_tpu_torch.calib.calibration import (
-    StitchGeometry, calibrate, check_supported, plan_geometry, rebuild_aux,
+    StitchGeometry, calibrate, check_supported, compose_fused_maps_from_disp,
+    krinv_device, plan_geometry, prewarp_source, rebuild_aux,
 )
 from video_stitcher_tpu_torch.calib.state import (
     CalibState, load_state, save_state, state_to,
 )
 from video_stitcher_tpu_torch.config import StitcherConfig
-from video_stitcher_tpu_torch.ops.color import nv12_to_rgb_planar
+from video_stitcher_tpu_torch.mesh.mesh2map import upsample_backward_disp
+from video_stitcher_tpu_torch.mesh.pipeline import solve_mesh_maps
+from video_stitcher_tpu_torch.ops.color import (
+    nv12_to_rgb_planar, nv12_to_rgb_planar_scaled,
+)
+from video_stitcher_tpu_torch.ops.remap import remap_planar
 from video_stitcher_tpu_torch.ops.remap_strips import (
     plan_remap, remap_strips,
 )
@@ -48,9 +57,25 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def _warp_source(frames_u8: torch.Tensor) -> torch.Tensor:
-    """u8 RGB [N, H, W, 3] -> planar u8 [N, 3, H, W] (exact), or NV12 u8
-    [N, H*3/2, W] -> planar f32 [N, 3, H, W]."""
+def _prewarped_planar(frames_u8: torch.Tensor, geom: StitchGeometry
+                      ) -> torch.Tensor:
+    """u8 RGB [N, H, W, 3] or NV12 [N, H*3/2, W] -> planar f32 [N, 3,
+    compose_h, compose_w] (prewarp). NV12 takes the fused conversion at
+    compose scale (nv12_to_rgb_planar_scaled); RGB is resized after the
+    conversion to f32 (timed.cpp:77)."""
+    if frames_u8.dim() == 3:
+        return nv12_to_rgb_planar_scaled(frames_u8, geom.compose_h,
+                                         geom.compose_w).contiguous()
+    return prewarp_source(frames_u8.permute(0, 3, 1, 2), geom).contiguous()
+
+
+def _warp_source(frames_u8: torch.Tensor, geom: StitchGeometry
+                 ) -> torch.Tensor:
+    """K1's source: u8 RGB [N, H, W, 3] -> planar u8 [N, 3, H, W] (exact),
+    NV12 u8 [N, H*3/2, W] -> planar f32 [N, 3, H, W]; under prewarp
+    either -> planar f32 at compose size (_prewarped_planar)."""
+    if geom.prewarp:
+        return _prewarped_planar(frames_u8, geom)
     if frames_u8.dim() == 3:
         return nv12_to_rgb_planar(frames_u8).contiguous()
     return frames_u8.permute(0, 3, 1, 2).contiguous()
@@ -63,7 +88,7 @@ def warp_bands(frames_u8: torch.Tensor, state: CalibState,
     one K1 launch, over `plan` (the state's tile plan; built by K1 when
     None). N may be B * n_maps (batched frame sets reuse the maps
     cyclically; the gains are tiled to match)."""
-    src = _warp_source(frames_u8)
+    src = _warp_source(frames_u8, geom)
     n_maps = state.fused_maps.shape[0]
     gains = state.gains
     if src.shape[0] != n_maps:
@@ -120,6 +145,8 @@ class Stitcher:
     under a lock, and every online call takes one snapshot of
     `(state, geom, plan)` under it, so a swap from another thread never
     mixes two states, or a state and another state's plan, in one call.
+    A mesh re-solve (recalibrate_mesh) installs its state and that
+    state's plan the same way.
     """
 
     def __init__(self, cfg: StitcherConfig, device=None):
@@ -129,16 +156,32 @@ class Stitcher:
         self.state: Optional[CalibState] = None
         self.aux: Optional[dict] = None
         self.plan: Optional[TilePlan] = None
+        #: the state before the first mesh solve (global warp only)
+        self.state_global: Optional[CalibState] = None
         self._swap_lock = threading.Lock()
+        self._mesh_pipe = None          # mesh/pipeline.MeshPipeline
+        self._krinv = None              # K @ R.T per camera, on the device
 
     # --- calibration -------------------------------------------------
     def calibrate(self, frames: np.ndarray) -> None:
+        """Calibrate the rig from one frame set; with cfg.enable_local,
+        then solve the CPW mesh from it (calibration.cpp:299-302)."""
         geom, state, aux = calibrate(np.asarray(frames), self.cfg,
                                      self.device)
+        self._install_new(geom, state, aux)
+        if self.cfg.enable_local:
+            self.recalibrate_mesh(frames)
+
+    def _install_new(self, geom: StitchGeometry, state: CalibState,
+                     aux: dict) -> None:
+        """Install a new calibration: its state is also the global-only
+        state, and the mesh machinery of the old one goes."""
         plan = self._plan(geom, state)
         with self._swap_lock:
             self.geom, self.state, self.aux, self.plan = (geom, state, aux,
                                                           plan)
+            self.state_global = state
+            self._mesh_pipe = self._krinv = None
 
     def save_calibration(self, path: str) -> None:
         save_state(path, self._snapshot()[0])
@@ -148,11 +191,10 @@ class Stitcher:
         with the aux rebuilt from the geometry (rebuild_aux)."""
         geom = self.geom or plan_geometry(self.cfg)[0]
         aux = rebuild_aux(self.cfg, geom, self.device)
-        state = self._on_device(geom, load_state(path, self.device))
-        plan = self._plan(geom, state)
-        with self._swap_lock:
-            self.geom, self.state, self.aux, self.plan = (geom, state, aux,
-                                                          plan)
+        # the checkpoint's maps may hold a solved mesh: the closest stand-in
+        # for the global-only state
+        self._install_new(geom, self._on_device(
+            geom, load_state(path, self.device)), aux)
 
     def swap_state(self, state: CalibState) -> None:
         """Install a CalibState (moved to this stitcher's device) for the
@@ -175,8 +217,9 @@ class Stitcher:
 
     @staticmethod
     def _plan(geom: StitchGeometry, state: CalibState) -> TilePlan:
-        """K1's tile plan of the state's maps (never checkpointed)."""
-        return plan_remap(state.fused_maps, geom.src_h, geom.src_w)
+        """K1's tile plan of the state's maps over the source K1 samples
+        (never checkpointed)."""
+        return plan_remap(state.fused_maps, geom.warp_src_h, geom.warp_src_w)
 
     def _snapshot(self) -> Tuple[CalibState, StitchGeometry, TilePlan]:
         """The installed (state, geom, plan), read together under the
@@ -254,3 +297,59 @@ class Stitcher:
         policy (timed.cpp:254-292)."""
         oh, ow = self._out_size(self._snapshot()[1])
         return self.finalize_out(output_frame(self._frames(pano_u8), oh, ow))
+
+    # --- recalibration (CPW mesh) ---------------------------------------
+    def recalibrate_mesh(self, frames) -> bool:
+        """Re-solve the CPW mesh from fresh frames and install the maps it
+        gives, with their tile plan (the reference's recalibrateMesh
+        thread body, timed.cpp:414-463). Returns True if a mesh was
+        installed."""
+        disp_c = solve_mesh_maps(frames, self)
+        if disp_c is None:
+            return False
+        state, geom, _ = self._snapshot()
+        if self._krinv is None:
+            self._krinv = krinv_device(self.aux["cams_map"], self.device)
+        disp = torch.as_tensor(disp_c, device=self.device)
+        new_state = state._replace(fused_maps=compose_fused_maps_from_disp(
+            self._krinv, disp, geom))
+        if self.cfg.update_masks:
+            lay = geom.layout
+            new_state = self._rebuild_weights(
+                new_state, upsample_backward_disp(disp, lay.band_h,
+                                                  lay.band_w))
+        plan = self._plan(geom, new_state)
+        with self._swap_lock:
+            self.state, self.plan = new_state, plan
+        return True
+
+    def _rebuild_weights(self, state: CalibState, mesh_maps: torch.Tensor
+                         ) -> CalibState:
+        """Re-warp the calibration seam weights through the CPW mesh's
+        dense backward maps [N, 2, bh, bw] and rebuild the blend weight
+        pyramids (MultiBandBlender::update_mask, blenders.cpp:297-315;
+        opt-in through cfg.update_masks, as the reference disabled it)."""
+        w0 = self.aux["weights0"]
+        mesh_maps = torch.as_tensor(mesh_maps, device=self.device)
+        warped = torch.stack([
+            remap_planar(w[None], m[0], m[1], border="constant")[0]
+            for w, m in zip(w0, mesh_maps)])
+        weight_pyr, valid = build_weight_pyramids(warped, self.geom.layout)
+        return state._replace(weight_pyr=tuple(w.contiguous()
+                                               for w in weight_pyr),
+                              valid_mask=valid)
+
+    @staticmethod
+    def interpolate_states(old: CalibState, new: CalibState, t: float
+                           ) -> CalibState:
+        """The state between two calibrations at t in [0, 1] (the
+        RECALIB_INTERP animation, timed.cpp:452-459 /
+        meshwarper.cpp:337-354): `new` with its maps lerped from `old`'s.
+        A sample invalid at either end (<= -1) stays -1 for the whole
+        animation instead of lerping through the sentinel. Install it
+        with swap_state, which builds its tile plan."""
+        t = float(min(max(t, 0.0), 1.0))
+        a, b = old.fused_maps, new.fused_maps
+        mix = torch.where(torch.minimum(a, b) > -1.0, a * (1.0 - t) + b * t,
+                          torch.full_like(a, -1.0))
+        return new._replace(fused_maps=mix)
