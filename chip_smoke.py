@@ -23,7 +23,17 @@ that computes K2's function. Last, the prewarp path of the JAX package's
 BASELINE config 4 (6x3840x2160 -> 7680x3840, keep_aspect_ratio,
 add_black_bars, global warp): K1 on the f32 source resized to compose
 scale, held against its plain version and timed against its bound, and
-stitch_out from RGB and NV12.
+stitch_out from RGB and NV12. Then phase "runner": the live Runner
+(pipeline/runner.py) with the calibrated 6x1080p stitcher: (a) over the
+native TCP capture server (framed protocol, 6 loopback boards streaming
+NV12 sets) in the threaded and the inline pipeline, every output equal
+to stitch_out of the set sent for it; (b) the live re-solve thread with
+the interpolation animation until two meshes install; (c) HEVC egress
+into a loopback player that counts the pictures; (d) BASELINE config 4
+from memory; (e) 20 Runner frames under torch.profiler (utils/trace) for
+the card's busy share; and the host<->card copies of one frame set and
+one output frame, pinned against pageable. The native I/O libraries
+(native/*.cpp) build with g++ beside the kernels' nvcc.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after.
@@ -44,9 +54,12 @@ result line, when there is no CUDA device or any phase fails.
 from __future__ import annotations
 
 import json
+import socket
 import statistics
+import struct
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -710,7 +723,537 @@ def prewarp_phase(cfg4, dev, small4):
                "prewarp_stitch_out_host_ms": out_host_ms,
                "prewarp_stitch_out_nv12_host_ms": out_nv_host_ms,
                "prewarp_small_rig_max_abs": d_small}
-    return metrics, entry
+    return metrics, entry, st, nv12
+
+
+# ---- the live Runner ------------------------------------------------------
+
+RUNNER_FRAMES = 100    # (a) frames stitched per pipeline mode over TCP
+EGRESS_FRAMES = 30     # (c)
+RUNNER_4K_FRAMES = 30  # (d)
+TRACE_FRAMES = 20      # (e) frames under torch.profiler
+RESOLVE_MAX_FRAMES = 3000   # (b) stops after 2 installs; this bounds it
+STEADY_SKIP = 10       # first frames left out of the steady-state fps
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class CycleSource:
+    """In-memory frame source: hands out `sets` in turn until `limit` sets
+    were read or `until()` is true."""
+
+    def __init__(self, sets, limit, until=lambda: False):
+        self.sets, self.limit, self.until, self.n = sets, limit, until, 0
+
+    def get_frames(self):
+        if self.n >= self.limit or self.until():
+            return None
+        out = self.sets[self.n % len(self.sets)]
+        self.n += 1
+        return out
+
+    def release(self):
+        pass
+
+
+class CheckSink:
+    """Holds the Runner's output i against expected[(i + first) %
+    len(expected)], the output of the frame set the source handed out
+    for it (a calibrated stitcher's Runner discards its first read,
+    the calibration read: first=1). Compares every `every`-th output."""
+
+    def __init__(self, expected, first=1, every=1):
+        self.expected, self.first, self.every = expected, first, every
+        self.n = self.compared = self.mismatched = self.max_abs = 0
+
+    def write(self, out):
+        i = self.n
+        self.n += 1
+        if i % self.every:
+            return
+        want = self.expected[(i + self.first) % len(self.expected)]
+        self.compared += 1
+        if out.shape != want.shape:
+            self.mismatched += 1
+            self.max_abs = 256
+        elif not np.array_equal(out, want):
+            self.mismatched += 1
+            self.max_abs = max(self.max_abs, max_abs_u8(out, want))
+
+    def release(self):
+        pass
+
+
+def drive_runner(r, st):
+    """r.run() with K1's count from 0 and the stitcher's re-solves
+    counted. Returns (K1 launches, the launches the Runner's own counts
+    give: frames stitched + the calib.jpg pano + one estimation warp per
+    re-solve)."""
+    from video_stitcher_tpu_torch.ops.remap_strips import remap_strips
+    solves = []
+    solve = st.recalibrate_mesh
+
+    def counted(frames):
+        solves.append(1)
+        return solve(frames)
+    st.recalibrate_mesh = counted
+    remap_strips.launches = 0
+    try:
+        r.run()
+    finally:
+        del st.recalibrate_mesh
+    torch.cuda.synchronize()
+    return remap_strips.launches, r.frames_done + 1 + len(solves)
+
+
+def runner_numbers(r) -> dict:
+    """Steady-state fps from the completion stamps and latency percentiles
+    (both with the first STEADY_SKIP frames left out), stage means,
+    stalls."""
+    ts = r.done_ts
+    fps = ((len(ts) - 1 - STEADY_SKIP) / (ts[-1] - ts[STEADY_SKIP])
+           if len(ts) > STEADY_SKIP + 1 else float("nan"))
+    lat = np.asarray(r.latencies[STEADY_SKIP:]) * 1e3
+    return {"frames": r.frames_done, "fps": fps,
+            "p50_ms": float(np.percentile(lat, 50)) if lat.size else None,
+            "p99_ms": float(np.percentile(lat, 99)) if lat.size else None,
+            "stage_ms": {k: r.timers.mean_ms(k) for k in r.timers.sums},
+            "sync_stalls": r.sync_stalls, "stage_stalls": r.stage_stalls}
+
+
+def log_runner(name: str, r, nums: dict) -> None:
+    log(f"  {name}: {nums['frames']} frames, steady {nums['fps']:.3f} fps"
+        f", latency p50 {nums['p50_ms']:.3f} ms p99 {nums['p99_ms']:.3f} ms"
+        f" (first {STEADY_SKIP} left out of both); stages {r.timers.summary()}; "
+        f"stalls sync {r.sync_stalls} stage {r.stage_stalls}")
+
+
+def has_room(ing, sent: int) -> bool:
+    """Whether the capture server has received every one of the `sent`
+    frames of each camera and holds at most one of them unread: then one
+    more set cannot overflow its bounded drop-oldest queues."""
+    lib = ing._native                   # None once the Runner stopped it
+    return lib is not None and all(
+        s["frames_ok"] >= sent for s in ing.stats()) and max(
+        lib.stitchio_queue_size(c) for c in range(ing.n)) <= 1
+
+
+def tcp_runner(st, cfg, sets, expected, mode):
+    """(a): the Runner over the native TCP capture server, framed
+    protocol: six loopback boards (one sender thread) stream the NV12 sets
+    in turn, each set once the server has room for it (has_room), so the
+    ingest drops nothing; every output held against stitch_out of the set
+    sent for it."""
+    import dataclasses
+    from video_stitcher_tpu_torch.io_plane.ingest import pack_frame
+    from video_stitcher_tpu_torch.pipeline.runner import Runner
+    port = free_port()
+    n, rows, w = sets[0].shape
+    rcfg = dataclasses.replace(
+        cfg, use_stream=True, capture_tcp_port=port, capture_framing=True,
+        capture_debug_order=True, capture_img_width=w,
+        capture_img_height=rows, pipeline_mode=mode, recalibrate=False)
+    sink = CheckSink(expected)
+    r = Runner(rcfg, stitcher=st, sink=sink, max_frames=RUNNER_FRAMES,
+               collect_latency=True)
+    payloads = [[f[cam].tobytes() for cam in range(n)] for f in sets]
+    done = threading.Event()
+    errors, socks = [], []
+
+    def finished():
+        return done.is_set() or r.frames_done >= RUNNER_FRAMES
+
+    def boards():
+        try:
+            deadline = time.monotonic() + 60
+            for cam in range(n):
+                while True:
+                    try:
+                        socks.append(socket.create_connection(
+                            ("127.0.0.1", port), timeout=30))
+                        break
+                    except OSError:
+                        if time.monotonic() > deadline:
+                            raise
+                        time.sleep(0.05)
+                # slots follow the accept order: the next board connects
+                # once this one is accepted
+                while time.monotonic() < deadline:
+                    ing = getattr(r, "_ingest", None)
+                    lib = ing and ing._native
+                    if lib is not None and lib.stitchio_clients() > cam:
+                        break
+                    time.sleep(0.01 if lib is not None else 0.2)
+            for k in range(RUNNER_FRAMES + 8):
+                while not (finished() or has_room(r._ingest, k)):
+                    time.sleep(1e-3)
+                if finished():
+                    return
+                for cam, sock in enumerate(socks):
+                    sock.sendall(pack_frame(payloads[k % len(sets)][cam], k))
+        except Exception as e:                   # noqa: BLE001
+            if not finished():       # not the Runner closing the server
+                errors.append(repr(e))
+    board_t = threading.Thread(target=boards, daemon=True)
+    board_t.start()
+    try:
+        launches, want = drive_runner(r, st)
+    finally:
+        done.set()
+        board_t.join(timeout=30)
+        for sk in socks:
+            sk.close()
+    stats = r._ingest.stats()
+    nums = runner_numbers(r)
+    log_runner(f"TCP, {mode}", r, nums)
+    log(f"    ingest: {r._ingest.stats_summary()}, frames_ok "
+        f"{[s['frames_ok'] for s in stats]}, drops "
+        f"{[s['drops'] for s in stats]}; native server "
+        f"{r._ingest._lib is not None}; K1 launches {launches}")
+    check(not errors and not board_t.is_alive(),
+          f"TCP {mode}: the capture boards streamed without error {errors}")
+    check(r.frames_done == RUNNER_FRAMES and sink.compared == RUNNER_FRAMES
+          and sink.mismatched == 0,
+          f"TCP {mode}: {sink.compared} of {r.frames_done} outputs equal "
+          f"stitch_out of the set sent for them (max abs {sink.max_abs})")
+    check(r.sync_stalls == 0 and r.stage_stalls == 0,
+          f"TCP {mode}: no sync or stage stall")
+    check(sum(s["resyncs"] + s["seq_gaps"] for s in stats) == 0,
+          f"TCP {mode}: ingest saw no resync and no sequence gap")
+    check(r._ingest._lib is not None,
+          f"TCP {mode}: the native capture server served")
+    check(launches == want, f"TCP {mode}: K1 launched {launches} times, "
+          f"frames + calib.jpg = {want}")
+    nums.update(k1_launches=launches, ingest_drops=sum(
+        s["drops"] for s in stats), max_abs=sink.max_abs)
+    return launches, nums
+
+
+def memory_runner(st, cfg, sets, expected, mode):
+    """(a) from memory: the same frame sets and checks as over TCP, with
+    no ingest: the Runner's own pace."""
+    import dataclasses
+    from video_stitcher_tpu_torch.pipeline.runner import Runner
+    rcfg = dataclasses.replace(cfg, pipeline_mode=mode, recalibrate=False)
+    sink = CheckSink(expected)
+    r = Runner(rcfg, stitcher=st, sink=sink,
+               source=CycleSource(sets, RUNNER_FRAMES + 1),
+               collect_latency=True)
+    launches, want = drive_runner(r, st)
+    nums = runner_numbers(r)
+    log_runner(f"from memory, {mode}", r, nums)
+    check(r.frames_done == RUNNER_FRAMES and sink.compared == RUNNER_FRAMES
+          and sink.mismatched == 0 and r.sync_stalls == r.stage_stalls == 0,
+          f"memory {mode}: {sink.compared} of {r.frames_done} outputs equal "
+          f"stitch_out of their set (max abs {sink.max_abs}), no stall")
+    check(launches == want, f"memory {mode}: K1 launched {launches} times, "
+          f"frames + calib.jpg = {want}")
+    nums.update(k1_launches=launches, max_abs=sink.max_abs)
+    return launches, nums
+
+
+def resolve_runner(st, cfg, sets):
+    """(b): the live re-solve in the threaded Runner (recalibrate,
+    recalib_interp, the default recalib_del_ms) until 2 re-solves have
+    installed and animated; then the installed state stitches with no
+    zero pixel inside valid_mask."""
+    import dataclasses
+    from video_stitcher_tpu_torch.pipeline.runner import Runner
+    rcfg = dataclasses.replace(cfg, recalibrate=True, recalib_interp=True,
+                               pipeline_mode="threaded")
+    steps = max(2, rcfg.recalib_del_ms // 60)
+    box = []
+    source = CycleSource(sets, RESOLVE_MAX_FRAMES, until=lambda: (
+        box[0].recalibs_done >= 2 and len(box[0].swap_ms) >= 2 * (steps - 1)))
+    r = Runner(rcfg, stitcher=st, source=source, collect_latency=True)
+    box.append(r)
+    launches, want = drive_runner(r, st)
+    nums = runner_numbers(r)
+    gaps = np.diff(r.recalib_ts) * 1e3
+    log_runner("live re-solve, threaded", r, nums)
+    log(f"    recalibs_done {r.recalibs_done}, recalib_ts spacing "
+        f"{[round(float(g), 3) for g in gaps]} ms (recalib_del_ms "
+        f"{rcfg.recalib_del_ms}); swap_ms over {len(r.swap_ms)} swaps: "
+        f"median {statistics.median(r.swap_ms) if r.swap_ms else 0:.4f}, "
+        f"max {max(r.swap_ms, default=0):.4f}; K1 launches {launches}")
+    check(r.recalibs_done >= 2, f"live re-solve: {r.recalibs_done} meshes "
+          f"installed while frames flowed (>= 2)")
+    check(r.sync_stalls == 0 and r.stage_stalls == 0 and r.frames_done
+          < RESOLVE_MAX_FRAMES, "live re-solve: ended cleanly, no stall")
+    check(launches == want, f"live re-solve: K1 launched {launches} times, "
+          f"frames + calib.jpg + re-solves = {want}")
+    pano = st.stitch(sets[0])
+    valid = st.state.valid_mask.cpu().numpy() > 0
+    zeros = int((pano.max(-1)[valid] == 0).sum())
+    check(zeros == 0, f"live re-solve: {zeros} zero pano pixels inside "
+          f"valid_mask after it")
+    nums.update(k1_launches=launches, recalibs_done=r.recalibs_done,
+                recalib_spacing_ms=gaps.tolist(),
+                swap_ms_median=statistics.median(r.swap_ms)
+                if r.swap_ms else None,
+                swap_ms_max=max(r.swap_ms, default=None))
+    return launches, nums
+
+
+def count_pictures(units) -> int:
+    """HEVC pictures in Annex-B units: VCL NAL units (type < 32) whose
+    slice starts a picture (first_slice_segment_in_pic_flag)."""
+    n = 0
+    for u in units:
+        i = u.index(b"\x01") + 1            # past the start code
+        if len(u) > i + 2 and (u[i] >> 1) & 0x3F < 32 and u[i + 2] & 0x80:
+            n += 1
+    return n
+
+
+def egress_runner(st, cfg, sets):
+    """(c): PlayerEgress(encoder="hevc") from the threaded Runner into a
+    loopback player that counts the pictures it receives."""
+    import dataclasses
+    from video_stitcher_tpu_torch.io_plane.egress import (
+        AnnexBFramer, PlayerEgress)
+    from video_stitcher_tpu_torch.pipeline.runner import Runner
+    port = free_port()
+    srv = socket.socket()
+    srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    srv.bind(("127.0.0.1", port))
+    srv.listen(1)
+    got = {"height": None}
+    chunks = []             # counted after the run, off the Runner's GIL
+
+    def player():
+        conn, _ = srv.accept()
+        with conn:
+            head = b""
+            while len(head) < 4:
+                chunk = conn.recv(4 - len(head))
+                if not chunk:
+                    return
+                head += chunk
+            got["height"] = struct.unpack("<i", head)[0]
+            while True:
+                data = conn.recv(1 << 22)
+                if not data:
+                    break
+                chunks.append(data)
+    player_t = threading.Thread(target=player, daemon=True)
+    player_t.start()
+    rcfg = dataclasses.replace(cfg, player_address="127.0.0.1",
+                               player_tcp_port=port, send_results=True,
+                               recalibrate=False, pipeline_mode="threaded")
+    eg = PlayerEgress(rcfg, encoder="hevc")
+    send_ms = []
+    send = eg.send_frame
+
+    def timed_send(frame):
+        t0 = time.perf_counter()
+        send(frame)
+        send_ms.append((time.perf_counter() - t0) * 1e3)
+    eg.send_frame = timed_send
+    r = Runner(rcfg, stitcher=st, source=CycleSource(sets, EGRESS_FRAMES + 1),
+               egress=eg, collect_latency=True)
+    try:
+        launches, want = drive_runner(r, st)
+    finally:
+        player_t.join(timeout=30)
+        srv.close()
+    framer = AnnexBFramer()
+    stream = b"".join(chunks)
+    got["bytes"] = len(stream)
+    got["pictures"] = count_pictures(framer.push(stream) + [framer.flush()])
+    nums = runner_numbers(r)
+    enc = eg.selected_encoder
+    log_runner(f"egress hevc ({enc}), threaded", r, nums)
+    log(f"    player: height {got['height']}, {got['pictures']} pictures, "
+        f"{got['bytes']} bytes; send_frame median "
+        f"{statistics.median(send_ms):.3f} ms, max {max(send_ms):.3f} ms "
+        f"per frame")
+    lookahead = enc in ("kvazaar", "ffmpeg")    # the subprocess's lookahead
+    check(not player_t.is_alive() and got["height"] is not None
+          and (got["pictures"] == r.frames_done if not lookahead
+               else 0 < got["pictures"] <= r.frames_done),
+          f"egress: the player received {got['pictures']} pictures for "
+          f"{r.frames_done} frames (encoder {enc})")
+    check(launches == want and r.sync_stalls == 0,
+          f"egress: K1 launched {launches} times (= {want}), no stall")
+    nums.update(k1_launches=launches, selected_encoder=enc,
+                egress_ms_median=statistics.median(send_ms),
+                egress_ms_max=max(send_ms), pictures=got["pictures"],
+                egress_bytes=got["bytes"])
+    return launches, nums
+
+
+def runner_4k(st4, nv12_4):
+    """(d): BASELINE config 4 in the threaded Runner from memory; outputs
+    0, 10 and 20 held against stitch_out of the same set."""
+    import dataclasses
+    from video_stitcher_tpu_torch.pipeline.runner import Runner
+    rcfg = dataclasses.replace(st4.cfg, pipeline_mode="threaded",
+                               recalibrate=False)
+    sink = CheckSink([st4.stitch_out(nv12_4)], first=0, every=10)
+    r = Runner(rcfg, stitcher=st4, sink=sink,
+               source=CycleSource([nv12_4], RUNNER_4K_FRAMES + 1),
+               collect_latency=True)
+    launches, want = drive_runner(r, st4)
+    nums = runner_numbers(r)
+    log_runner("4K -> 8K NV12 from memory, threaded", r, nums)
+    check(sink.compared == 3 and sink.mismatched == 0,
+          f"4K runner: {sink.compared} outputs checked equal to stitch_out "
+          f"(max abs {sink.max_abs})")
+    check(launches == want and r.sync_stalls == 0 and r.stage_stalls == 0,
+          f"4K runner: K1 launched {launches} times (= {want}), no stall")
+    nums.update(k1_launches=launches)
+    return launches, nums
+
+
+def trace_busy(path: str) -> dict:
+    """Share of a torch.profiler Chrome trace's span in which the card ran
+    a kernel (and a copy): the union of their intervals over the span of
+    all the trace's events."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+
+    def union(spans):
+        total, end = 0.0, float("-inf")
+        for a, b in sorted(spans):
+            if b > end:
+                total += b - max(a, end)
+                end = b
+        return total
+    t0 = min(e["ts"] for e in events)
+    t1 = max(e["ts"] + e["dur"] for e in events)
+    kern = [(e["ts"], e["ts"] + e["dur"]) for e in events
+            if e.get("cat") == "kernel"]
+    copy = [(e["ts"], e["ts"] + e["dur"]) for e in events
+            if e.get("cat") == "gpu_memcpy"]
+    return {"kernel_share": union(kern) / (t1 - t0),
+            "copy_share": union(copy) / (t1 - t0),
+            "kernels": len(kern), "span_ms": (t1 - t0) / 1e3}
+
+
+def traced_runner(st, cfg, sets, trace_dir):
+    """(e): the threaded Runner with cfg.trace_dir: utils/trace records
+    TRACE_FRAMES frames under torch.profiler; the card's busy share comes
+    from the trace it writes."""
+    import dataclasses
+    import os
+    from video_stitcher_tpu_torch.pipeline.runner import Runner
+    rcfg = dataclasses.replace(cfg, trace_dir=trace_dir,
+                               trace_frames=TRACE_FRAMES,
+                               pipeline_mode="threaded", recalibrate=False)
+    r = Runner(rcfg, stitcher=st,
+               source=CycleSource(sets, TRACE_FRAMES + 4),
+               collect_latency=True)
+    launches, want = drive_runner(r, st)
+    busy = trace_busy(os.path.join(trace_dir, "trace.json"))
+    log(f"  {TRACE_FRAMES} Runner frames under torch.profiler: card busy "
+        f"{busy['kernel_share']:.4f} of {busy['span_ms']:.3f} ms in kernels"
+        f" ({busy['kernels']} kernels), {busy['copy_share']:.4f} in copies")
+    check(busy["kernels"] > 0 and launches == want,
+          f"traced runner: the trace holds the card's kernels, K1 launched "
+          f"{launches} times (= {want})")
+    return launches, busy
+
+
+def transfer_times(st, host_frames: np.ndarray, out_dev) -> dict:
+    """Host<->card copies of one frame set and one output frame, each
+    timed alone: the copy between CUDA events from a pinned against a
+    pageable host tensor, and the calls the Runner makes (stage_frames,
+    finalize_out) against the pageable ones (torch.as_tensor, .cpu())
+    between two synchronisations."""
+    dev = st.device
+    pageable = torch.from_numpy(np.ascontiguousarray(host_frames))
+    pinned = torch.empty(pageable.shape, dtype=pageable.dtype,
+                         pin_memory=True)
+    pinned.copy_(pageable)
+    dst = torch.empty(pageable.shape, dtype=pageable.dtype, device=dev)
+    out_pinned = torch.empty(out_dev.shape, dtype=out_dev.dtype,
+                             pin_memory=True)
+    out_pageable = torch.empty(out_dev.shape, dtype=out_dev.dtype)
+    return {
+        "upload_bytes": pageable.numel(),
+        "upload_pinned_ms": event_ms(
+            lambda: dst.copy_(pinned, non_blocking=True)),
+        "upload_pageable_ms": event_ms(lambda: dst.copy_(pageable)),
+        "stage_frames_ms": sync_ms(lambda: st.stage_frames(host_frames)),
+        "as_tensor_ms": sync_ms(lambda: torch.as_tensor(host_frames,
+                                                        device=dev)),
+        "download_bytes": out_dev.numel(),
+        "download_pinned_ms": event_ms(
+            lambda: out_pinned.copy_(out_dev, non_blocking=True)),
+        "download_pageable_ms": event_ms(lambda: out_pageable.copy_(out_dev)),
+        "finalize_out_ms": sync_ms(lambda: st.finalize_out(out_dev)),
+        "cpu_numpy_ms": sync_ms(lambda: out_dev.cpu().numpy()),
+    }
+
+
+def log_transfers(name: str, t: dict) -> None:
+    log(f"  {name} upload {t['upload_bytes']} B: pinned "
+        f"{t['upload_pinned_ms']:.4f} ms, pageable "
+        f"{t['upload_pageable_ms']:.4f} ms (copy alone, CUDA events); "
+        f"stage_frames {t['stage_frames_ms']:.4f} ms, torch.as_tensor "
+        f"{t['as_tensor_ms']:.4f} ms (the call)")
+    log(f"  {name} download {t['download_bytes']} B: pinned "
+        f"{t['download_pinned_ms']:.4f} ms, pageable "
+        f"{t['download_pageable_ms']:.4f} ms (copy alone); finalize_out "
+        f"{t['finalize_out_ms']:.4f} ms, .cpu().numpy() "
+        f"{t['cpu_numpy_ms']:.4f} ms (the call)")
+
+
+def runner_phase(st, cfg, frames, frames2, st4, nv12_4):
+    """The live Runner at the main path's rig, reusing its calibrated
+    stitcher: (a) over TCP in both pipeline modes, (b) the live re-solve,
+    (c) HEVC egress, (d) BASELINE config 4 from memory, (e) 20 frames
+    under torch.profiler; and the host<->card copies alone. Runs in a
+    temporary directory (the Runner writes calib.jpg and result.jpg).
+    Returns (K1 launches by run, metrics)."""
+    import os
+    import tempfile
+    from video_stitcher_tpu_torch.ops.color import rgb_to_nv12
+    log("phase runner")
+    dev = st.device
+    rng = np.random.default_rng(SEED + 1)
+    frames3 = np.clip(frames.astype(np.int16)
+                      + rng.integers(-6, 7, frames.shape), 0, 255
+                      ).astype(np.uint8)
+    sets = [rgb_to_nv12(torch.as_tensor(f, device=dev)).cpu().numpy()
+            for f in (frames, frames2, frames3)]
+    expected = [st.stitch_out(s) for s in sets]
+    check(not np.array_equal(expected[0], expected[1]),
+          "the sets sent give different outputs")
+    launches, metrics = {}, {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            for mode in ("threaded", "inline"):
+                launches[f"TCP {mode}"], metrics[f"tcp_{mode}"] = tcp_runner(
+                    st, cfg, sets, expected, mode)
+                launches[f"memory {mode}"], metrics[f"memory_{mode}"] = \
+                    memory_runner(st, cfg, sets, expected, mode)
+            launches["live re-solve"], metrics["resolve"] = resolve_runner(
+                st, cfg, sets[:2])
+            launches["egress"], metrics["egress"] = egress_runner(st, cfg,
+                                                                  sets)
+            launches["4K"], metrics["runner_4k"] = runner_4k(st4, nv12_4)
+            launches["traced"], metrics["traced"] = traced_runner(
+                st, cfg, sets, os.path.join(tmp, "trace"))
+        finally:
+            os.chdir(cwd)
+    out_dev = st.stitch_out(torch.as_tensor(sets[0], device=dev),
+                            device=True)
+    metrics["transfers_1080p"] = transfer_times(st, sets[0], out_dev)
+    log_transfers("1080p NV12 set / 4096x1064 output:",
+                  metrics["transfers_1080p"])
+    out4 = st4.stitch_out(torch.as_tensor(nv12_4, device=dev), device=True)
+    metrics["transfers_4k"] = transfer_times(st4, nv12_4, out4)
+    log_transfers("4K NV12 set / 8K output:", metrics["transfers_4k"])
+    return launches, metrics
 
 
 def baseline_config4():
@@ -760,10 +1303,23 @@ def run(cfg, dev, cfg4, small4) -> int:
         f"device {kind} count {torch.cuda.device_count()}")
 
     log("phase build")
+    from concurrent.futures import ThreadPoolExecutor
+    from video_stitcher_tpu_torch.io_plane import native
     t0 = time.perf_counter()
-    built = _build.build()
+    with ThreadPoolExecutor(1) as pool:      # g++ beside nvcc
+        native_job = pool.submit(native.build)
+        built = _build.build()
+        native_built = native_job.result()
     log(f"  build seconds {time.perf_counter() - t0:.3f} per kernel "
         f"{json.dumps(built)}")
+    for name, b in native_built.items():
+        log(f"  native {name}: " + (f"{b.seconds:.3f} s" if b.error is None
+                                    else "not built: " + b.error.strip()
+                                    .splitlines()[0][:200]))
+    check(all(native_built[n].error is None for n in (
+        "libstitchio.so", "libhevcpcm.so", "libhevcintra.so")),
+        "the native I/O libraries build (libhevclavc needs libavcodec's "
+        "headers; without them the egress takes the next encoder)")
     for name in _build.KERNELS:
         log(f"  ptxas, csrc/{name}.cu:\n    "
             + _build.ptxas_report(name).replace("\n", "\n    "))
@@ -985,7 +1541,9 @@ def run(cfg, dev, cfg4, small4) -> int:
         f"card alone (max abs vs K1 {lib_err:.3g}); bound {k1_bound:.4f} "
         f"ms by {k1_by} ({nbytes} bytes); calibrate {calib_s:.3f} s")
     k2_entry, k2_metrics = k2_phase(st, frames, scene, valid, dev)
-    pw_metrics, pw_entry = prewarp_phase(cfg4, dev, small4)
+    pw_metrics, pw_entry, st4, nv12_4 = prewarp_phase(cfg4, dev, small4)
+    runner_launches, runner_metrics = runner_phase(st, cfg, frames, frames2,
+                                                   st4, nv12_4)
     log(json.dumps({"metrics": {
         "card": card, "calibrate_s": calib_s,
         "stitch_out_ms": stitch_out_ms,
@@ -996,7 +1554,8 @@ def run(cfg, dev, cfg4, small4) -> int:
         "stage_ms": stages, "stitch_out_card_busy_share": busy,
         "stitch_out_kernels_per_frame": kernels_per_frame,
         "build_s": built, "k1_launches_calibrate": calib_launches,
-        **local_metrics, **resolve_metrics, **k2_metrics, **pw_metrics}}))
+        **local_metrics, **resolve_metrics, **k2_metrics, **pw_metrics,
+        "runner": runner_metrics}}))
 
     log(json.dumps({"kernels": [{
         "name": "K1 remap_gain", "route": "cuda", "source": K1_SOURCE,
@@ -1009,7 +1568,8 @@ def run(cfg, dev, cfg4, small4) -> int:
         "tiles": st.plan.counts(),
         "launches_by_path": {"calibrate (mesh estimation warp)":
                              calib_launches, "stitch*": len(counts),
-                             "prewarp": pw_entry["launches"]},
+                             "prewarp": pw_entry["launches"],
+                             "runner": runner_launches},
         "prewarp_f32_source": pw_entry},
         k2_entry]}))
     log(card)

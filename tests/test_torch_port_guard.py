@@ -38,6 +38,13 @@ def test_import_pulls_in_no_jax():
         "from video_stitcher_tpu_torch.experiments import remap_separable\n"
         "from video_stitcher_tpu_torch.mesh import pipeline, cpw, mesh2map\n"
         "from video_stitcher_tpu_torch.features import orb, match, ransac\n"
+        "from video_stitcher_tpu_torch.pipeline import runner\n"
+        "from video_stitcher_tpu_torch.io_plane import (\n"
+        "    egress, hevc_intra, hevc_lavc, hevc_pcm, ingest, native, queues,\n"
+        "    video)\n"
+        "from video_stitcher_tpu_torch.utils import (\n"
+        "    devsync, log, timing, trace, viz)\n"
+        "assert native.load() is not None\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'video_stitcher_tpu' or m.startswith('video_stitcher_tpu.')]"
         "\nassert not bad, bad\n"
@@ -53,8 +60,11 @@ SOURCES = sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py"))
 
 def test_source_scan_reaches_every_subpackage():
     dirs = {pathlib.Path(p).parent.name for p in SOURCES}
-    assert {"features", "mesh", "calib", "ops", "pipeline"} <= dirs
-    assert "video_stitcher_tpu_torch/mesh/cpw.py" in SOURCES
+    assert {"features", "mesh", "calib", "ops", "pipeline", "io_plane",
+            "utils"} <= dirs
+    for path in ("mesh/cpw.py", "pipeline/runner.py", "io_plane/native.py",
+                 "io_plane/ingest.py", "utils/devsync.py"):
+        assert f"video_stitcher_tpu_torch/{path}" in SOURCES
 
 
 @pytest.mark.parametrize("path", SOURCES)
@@ -92,17 +102,52 @@ def test_stitcher_defaults_to_the_card():
 
 
 def test_unported_paths_raise():
-    """enable_local and prewarp are ported; sharding and the debug
-    visualisations are not."""
+    """enable_local, prewarp and the debug visualisations are ported;
+    camera sharding is not."""
     frames = np.zeros((2, 36, 64, 3), np.uint8)
-    for option, match in ((dict(camera_shards=2), "camera_shards"),
-                          (dict(visualize_matches=True), "visualize"),
-                          (dict(visualize_mesh=True), "visualize")):
-        cfg = StitcherConfig(num_images=2, input_width=64, input_height=36,
-                             **option)
-        assert cfg.enable_local
-        with pytest.raises(NotImplementedError, match=match):
-            Stitcher(cfg, device="cpu").calibrate(frames)
+    cfg = StitcherConfig(num_images=2, input_width=64, input_height=36,
+                         camera_shards=2)
+    assert cfg.enable_local
+    with pytest.raises(NotImplementedError, match="camera_shards"):
+        Stitcher(cfg, device="cpu").calibrate(frames)
+
+
+def test_native_library_name_follows_source_headers_and_flags(tmp_path,
+                                                              monkeypatch):
+    """A native library is rebuilt exactly when its source, a header it
+    includes or its flags change: all three are in its name."""
+    from video_stitcher_tpu_torch.io_plane import native
+    for name in ("hevc_pcm.cpp", "cabac_tables.h"):
+        (tmp_path / name).write_bytes((native.NATIVE_DIR / name)
+                                      .read_bytes())
+    monkeypatch.setattr(native, "NATIVE_DIR", tmp_path)
+    before = native.library_path("libhevcpcm.so")
+    assert before.name.startswith("libhevcpcm-")
+    assert native.library_path("libhevcpcm.so") == before
+    (tmp_path / "cabac_tables.h").write_text(
+        (tmp_path / "cabac_tables.h").read_text() + "\n// changed\n")
+    after_header = native.library_path("libhevcpcm.so")
+    assert after_header != before
+    monkeypatch.setattr(native, "CXXFLAGS", native.CXXFLAGS + ("-g",))
+    assert native.library_path("libhevcpcm.so") != after_header
+    assert before.parent == native._build.BUILD_DIR
+
+
+def test_no_binary_is_tracked_under_the_port():
+    """The native sources and kernels ship as sources: a library exists
+    only where it is built, in the git-ignored _build/."""
+    binary = (".so", ".o", ".a")
+    if (ROOT / ".git").exists():
+        out = subprocess.run(["git", "ls-files", "video_stitcher_tpu_torch"],
+                             cwd=str(ROOT), capture_output=True, text=True,
+                             timeout=60)
+        assert out.returncode == 0, out.stderr
+        tracked = out.stdout.split()
+        assert "video_stitcher_tpu_torch/native/stitchio.cpp" in tracked
+        assert not [p for p in tracked if p.endswith(binary)]
+    else:                                  # an export of the tree
+        assert not [p for p in PKG.rglob("*") if p.suffix in binary
+                    and "_build" not in p.relative_to(PKG).parts]
 
 
 def test_remap_strips_checks_its_inputs():

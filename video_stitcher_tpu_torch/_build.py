@@ -42,10 +42,10 @@ def _nvcc() -> str:
                        "host with the CUDA toolkit (set CUDA_HOME)")
 
 
-def sources(name: str) -> List[Path]:
-    """csrc/<name>.cu and every header it includes by a quoted path, at
-    any depth."""
-    found, todo = [], [CSRC / f"{name}.cu"]
+def include_closure(root: Path) -> List[Path]:
+    """`root` and every header it includes by a quoted path, at any
+    depth."""
+    found, todo = [], [root]
     while todo:
         path = todo.pop()
         if path not in found:
@@ -56,14 +56,26 @@ def sources(name: str) -> List[Path]:
     return found
 
 
+def hashed_name(stem: str, paths: Sequence[Path],
+                flags: Sequence[str]) -> str:
+    """`stem` and a hash of the files' names and contents and of the
+    flags: the name of the library they build."""
+    digest = hashlib.sha256()
+    for path in paths:
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(flags).encode())
+    return f"{stem}-{digest.hexdigest()[:16]}.so"
+
+
+def sources(name: str) -> List[Path]:
+    """csrc/<name>.cu and every header it includes."""
+    return include_closure(CSRC / f"{name}.cu")
+
+
 def library_path(name: str) -> Path:
     """Where the shared library of csrc/<name>.cu lives for this source,
     its headers and the flags."""
-    digest = hashlib.sha256()
-    for path in sources(name):
-        digest.update(path.name.encode() + b"\0" + path.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / hashed_name(f"lib{name}", sources(name), NVCC_FLAGS)
 
 
 def ptxas_report(name: str) -> str:

@@ -349,9 +349,6 @@ def check_supported(cfg: StitcherConfig, geom: StitchGeometry) -> None:
     """Raise for the configurations whose paths are not ported yet."""
     if cfg.camera_shards > 1:
         raise NotImplementedError("camera_shards > 1 is not ported yet")
-    if cfg.visualize_matches or cfg.visualize_mesh:
-        raise NotImplementedError("visualize_matches / visualize_mesh need "
-                                  "utils/viz.py, which is not ported yet")
 
 
 def _compose_aux(cfg: StitcherConfig, geom: StitchGeometry,

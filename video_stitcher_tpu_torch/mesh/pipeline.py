@@ -247,8 +247,34 @@ class MeshPipeline:
 
         verts = self.solver.solve(matches, temporal=temporal,
                                   salience=salience)
+        if cfg.visualize_matches or cfg.visualize_mesh:
+            self._dump_viz(bands, matches, verts)
         return coarse_backward_disp(verts, geom.layout.band_h,
                                     geom.layout.band_w)
+
+    def _dump_viz(self, bands, matches, verts):
+        """Write match / mesh debug images for this recalibration under
+        cfg.viz_dir (VISUALIZE_MATCHES / VISUALIZE_WARPED toggles,
+        defs.h:62-64 / meshwarper.cpp:159-171,788-807). Debug-only:
+        downloads the bands."""
+        import os
+        from video_stitcher_tpu_torch.utils import viz
+        cfg = self.cfg
+        os.makedirs(cfg.viz_dir, exist_ok=True)
+        self._viz_seq = getattr(self, "_viz_seq", -1) + 1
+        imgs = bands.cpu().numpy()                # [C, 3, bh, bw]
+        for i, m in enumerate(matches):
+            if cfg.visualize_matches and m is not None:
+                pairs = np.stack([np.arange(len(m.p1))] * 2, axis=1)
+                img = viz.draw_matches(imgs[i], m.p1, imgs[m.dst], m.p2,
+                                       pairs)
+                viz.save(os.path.join(
+                    cfg.viz_dir,
+                    f"matches_{self._viz_seq:03d}_{i}to{m.dst}.png"), img)
+            if cfg.visualize_mesh:
+                img = viz.draw_mesh(imgs[i], verts[i])
+                viz.save(os.path.join(
+                    cfg.viz_dir, f"mesh_{self._viz_seq:03d}_{i}.png"), img)
 
 
 def solve_mesh_maps(frames, stitcher):

@@ -1,5 +1,5 @@
-"""Colour conversions: NV12 -> planar RGB (full or compose scale), RGB ->
-NV12, RGB -> gray.
+"""Colour conversions: NV12 -> planar RGB (full or compose scale) or
+channel-last RGB, RGB -> NV12, RGB -> I420, RGB -> gray.
 
 Torch twin of the JAX package's ``ops/color.py`` (the reference's
 NV12->BGR cvtColor, networking.cpp:46, and BGR->GRAY,
@@ -38,6 +38,12 @@ def nv12_to_rgb_planar(nv12: torch.Tensor, dtype=torch.float32):
     return torch.clamp(torch.stack([r, g, b], dim=-3), 0.0, 255.0).to(dtype)
 
 
+def nv12_to_rgb(nv12: torch.Tensor) -> torch.Tensor:
+    """nv12: u8 [..., H*3/2, W] -> f32 channel-last RGB [..., H, W, 3] in
+    [0, 255] (the layout calibration takes)."""
+    return nv12_to_rgb_planar(nv12).movedim(-3, -1)
+
+
 def rgb_to_nv12(rgb: torch.Tensor) -> torch.Tensor:
     """RGB [..., H, W, 3] -> NV12 u8 [..., H*3/2, W]: the capture boards'
     frame format (360_stitcher/defs.h:10-17), BT.601 video range, chroma
@@ -50,6 +56,24 @@ def rgb_to_nv12(rgb: torch.Tensor) -> torch.Tensor:
     uv = torch.stack([u, v], dim=-1).flatten(-2)             # [..., h/2, w]
     out = torch.cat([y, uv], dim=-2)
     return torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
+
+
+def rgb_to_i420(rgb: torch.Tensor) -> torch.Tensor:
+    """RGB u8/f32 [H, W, 3] -> I420 u8 [H*3/2, W]: the Y plane, then the
+    quarter-resolution U plane, then V, as one flat buffer viewed as
+    [H*3/2, W] (COLOR_BGR2YUV_I420's layout, the HEVC encoder's input,
+    360_stitcher/timed.cpp:311). With an odd count of chroma rows the U
+    plane ends mid-row and V starts there. Chroma from the top-left pixel
+    of each 2x2 block."""
+    h, w = rgb.shape[0], rgb.shape[1]
+    x = rgb.to(torch.float32)
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    y = 0.256788 * r + 0.504129 * g + 0.097906 * b + 16.0
+    u = (-0.148223 * r - 0.290993 * g + 0.439216 * b + 128.0)[0::2, 0::2]
+    v = (0.439216 * r - 0.367788 * g - 0.071427 * b + 128.0)[0::2, 0::2]
+    flat = torch.cat([p.reshape(-1) for p in (y, u, v)])
+    return torch.clamp(torch.round(flat), 0, 255).to(torch.uint8).reshape(
+        h * 3 // 2, w)
 
 
 @functools.lru_cache(maxsize=32)
