@@ -44,6 +44,8 @@ def test_import_pulls_in_no_jax():
         "    video)\n"
         "from video_stitcher_tpu_torch.utils import (\n"
         "    devsync, log, timing, trace, viz)\n"
+        "from video_stitcher_tpu_torch.parallel import dryrun, shard\n"
+        "from video_stitcher_tpu_torch.ops import filters, pyramid_int\n"
         "assert native.load() is not None\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'video_stitcher_tpu' or m.startswith('video_stitcher_tpu.')]"
@@ -61,9 +63,11 @@ SOURCES = sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py"))
 def test_source_scan_reaches_every_subpackage():
     dirs = {pathlib.Path(p).parent.name for p in SOURCES}
     assert {"features", "mesh", "calib", "ops", "pipeline", "io_plane",
-            "utils"} <= dirs
+            "utils", "parallel"} <= dirs
     for path in ("mesh/cpw.py", "pipeline/runner.py", "io_plane/native.py",
-                 "io_plane/ingest.py", "utils/devsync.py"):
+                 "io_plane/ingest.py", "utils/devsync.py",
+                 "parallel/shard.py", "parallel/dryrun.py",
+                 "ops/pyramid_int.py", "ops/filters.py"):
         assert f"video_stitcher_tpu_torch/{path}" in SOURCES
 
 
@@ -101,15 +105,21 @@ def test_stitcher_defaults_to_the_card():
     assert Stitcher(cfg, device="cpu").device.type == "cpu"
 
 
-def test_unported_paths_raise():
-    """enable_local, prewarp and the debug visualisations are ported;
-    camera sharding is not."""
-    frames = np.zeros((2, 36, 64, 3), np.uint8)
+def test_camera_shards_calibrate_and_shard_on_the_cpu():
+    """Every path of the JAX package is ported, camera sharding too: with
+    camera_shards=2 on the CPU the stitcher calibrates (with the CPW
+    mesh on) and shards its state over [cpu] * 2."""
+    frames = np.random.default_rng(0).integers(
+        0, 255, (2, 36, 64, 3)).astype(np.uint8)
     cfg = StitcherConfig(num_images=2, input_width=64, input_height=36,
                          camera_shards=2)
     assert cfg.enable_local
-    with pytest.raises(NotImplementedError, match="camera_shards"):
-        Stitcher(cfg, device="cpu").calibrate(frames)
+    st = Stitcher(cfg, device="cpu")
+    st.calibrate(frames)
+    shards = st._sharded.shards
+    assert [(s.device.type, s.lo, s.hi) for s in shards] == [
+        ("cpu", 0, 1), ("cpu", 1, 2)]
+    assert st.stitch(frames).shape == (st.geom.pano_h, st.geom.pano_w, 3)
 
 
 def test_native_library_name_follows_source_headers_and_flags(tmp_path,

@@ -5,7 +5,8 @@ MultiBandBlender, sources/modules/stitching/src/blenders.cpp:219-853): all
 cameras are one tensor [N, C, bandH, bandW] on a static ``BandLayout``; the
 seam weight pyramids are normalized once at calibration; each level's
 contributions are summed into the panorama at static corners, with ring
-wraparound as at most two slices per camera.
+wraparound as at most two slices per camera. ``blend_bands_int16`` is the
+reference's 16S integer blend, a parity twin off the production path.
 """
 
 from __future__ import annotations
@@ -17,7 +18,10 @@ import torch
 
 from video_stitcher_tpu_torch.geometry.cylindrical import BandLayout
 from video_stitcher_tpu_torch.ops.pyramid import (
-    gaussian_pyramid, laplacian_pyramid, pyr_up,
+    gaussian_pyramid, laplacian_pyramid, pyr_up, storage_dtype,
+)
+from video_stitcher_tpu_torch.ops.pyramid_int import (
+    laplacian_pyramid_i16, pyr_up_i16,
 )
 
 WEIGHT_EPS = 1e-5   # blenders.cpp WEIGHT_EPS
@@ -30,7 +34,12 @@ def _level_geom(layout: BandLayout, level: int):
 
 
 def _segments(corner: int, band_w: int, pano_w: int, wrap: bool):
-    """Static (pano_x, band_x, width) copy segments, wrapping if needed."""
+    """Static (pano_x, band_x, width) copy segments, wrapping if needed.
+    Raises for a band wider than the panorama, which no segment list can
+    place without writing out of range."""
+    if band_w > pano_w:
+        raise ValueError(f"band {band_w} px wide does not fit a {pano_w} px "
+                         f"panorama level")
     if not wrap:
         c = max(0, min(corner, pano_w - band_w))
         return [(c, 0, band_w)]
@@ -41,12 +50,17 @@ def _segments(corner: int, band_w: int, pano_w: int, wrap: bool):
     return [(c, 0, first), (0, first, band_w - first)]
 
 
-def place_bands(bands: torch.Tensor, layout: BandLayout, level: int):
+def place_bands(bands: torch.Tensor, layout: BandLayout, level: int,
+                corners=None):
     """Sum per-camera bands into the panorama at their static corners, in
-    camera order. bands: [N, ..., h_l, bw_l] -> [..., h_l, pw_l]."""
-    pw, _, bw, corners = _level_geom(layout, level)
+    camera order. bands: [N, ..., h_l, bw_l] -> [..., h_l, pw_l], a new
+    tensor. `corners` (level-0 x offsets, one per band) default to the
+    layout's; a camera shard passes its own cameras' (parallel/shard.py)."""
+    pw, _, bw, lvl_corners = _level_geom(layout, level)
+    if corners is not None:
+        lvl_corners = [c // (1 << level) for c in corners]
     pano = bands.new_zeros(tuple(bands.shape[1:-1]) + (pw,))
-    for i, corner in enumerate(corners):
+    for i, corner in enumerate(lvl_corners):
         for px, bx, wseg in _segments(corner, bw, pw, layout.wrap):
             pano[..., px:px + wseg] += bands[i, ..., bx:bx + wseg]
     return pano
@@ -94,12 +108,30 @@ def blend_bands(bands: torch.Tensor, weight_pyr: Sequence[torch.Tensor],
     chain) or "bf16" (bf16-stored pyramid tensors, each level's collapse
     sum in f32). Returns pano f32 [C, pano_h, pano_w].
     """
-    levels = layout.num_bands
+    return collapse_levels(weighted_levels(bands, weight_pyr, layout,
+                                           precision), precision, valid)
+
+
+def weighted_levels(bands: torch.Tensor, weight_pyr: Sequence[torch.Tensor],
+                    layout: BandLayout, precision: str = "highest",
+                    corners=None):
+    """The panorama's Laplacian levels: each camera's Laplacian pyramid
+    times its weight pyramid, in the storage dtype, placed at its corner
+    (`corners` as in place_bands)."""
+    dt = storage_dtype(precision)
+    lap = laplacian_pyramid(bands, layout.num_bands, precision)
+    return [place_bands(lap[lvl] * weight_pyr[lvl].to(dt), layout, lvl,
+                        corners) for lvl in range(layout.num_bands + 1)]
+
+
+def collapse_levels(acc: Sequence[torch.Tensor], precision: str = "highest",
+                    valid=None) -> torch.Tensor:
+    """Panorama Laplacian levels -> pano f32 [C, pano_h, pano_w]: each
+    level's sum in f32, stored between levels in the blend's storage
+    dtype, then masked by `valid`."""
     bf16 = precision == "bf16"
-    dt = torch.bfloat16 if bf16 else torch.float32
-    lap = laplacian_pyramid(bands, levels, precision)
-    acc = [place_bands(lap[lvl] * weight_pyr[lvl].to(dt), layout, lvl)
-           for lvl in range(levels + 1)]
+    dt = storage_dtype(precision)
+    levels = len(acc) - 1
     out = acc[-1]
     for lvl in range(levels - 1, -1, -1):
         out = acc[lvl].to(torch.float32) + pyr_up(
@@ -111,6 +143,45 @@ def blend_bands(bands: torch.Tensor, weight_pyr: Sequence[torch.Tensor],
     if valid is not None:
         out = out * valid[None]
     return out
+
+
+def blend_bands_int16(bands: torch.Tensor, weights0: torch.Tensor,
+                      layout: BandLayout, valid=None) -> torch.Tensor:
+    """Quantization-matched 16S twin of the reference's integer blend
+    (the JAX package's blend_bands_int16, step for step): the feed
+    (blenders.cpp:651-662, dst16 += short(lap16 * w32), truncating toward
+    zero), the normalisation (blenders.cpp:908-912, short(acc / (w +
+    eps))), 16S pyramids bit-exact to cv::pyrDown/pyrUp
+    (ops/pyramid_int.py) and the saturating 16S collapse. A parity path,
+    not the production blend.
+
+    bands:    f32 [N, C, bandH, bandW] warped + gain-compensated
+    weights0: f32 [N, bandH, bandW] raw (un-normalized) seam weights
+              (calibration aux["weights0"])
+    Returns pano f32 [C, pano_h, pano_w] holding exact integers 0..255.
+    """
+    nb = layout.num_bands
+    # the reference hands the blender u8 images (round half to even, as
+    # jnp.rint)
+    img16 = torch.clamp(torch.round(bands), 0, 255).to(torch.int32)
+    lap = laplacian_pyramid_i16(img16, nb)
+    wpyr = gaussian_pyramid(weights0[:, None].to(torch.float32), nb)
+    norm = []
+    for lvl in range(nb + 1):
+        t = torch.trunc(lap[lvl].to(torch.float32) * wpyr[lvl]
+                        ).to(torch.int32)
+        acc = place_bands(t, layout, lvl)
+        wsum = place_bands(wpyr[lvl], layout, lvl)
+        q = torch.trunc(acc.to(torch.float32) / (wsum + WEIGHT_EPS))
+        norm.append(torch.clamp(q, -32768, 32767).to(torch.int32))
+    out = norm[-1]
+    for lvl in range(nb - 1, -1, -1):
+        up = pyr_up_i16(out, norm[lvl].shape[-2], norm[lvl].shape[-1])
+        out = torch.clamp(norm[lvl] + up, -32768, 32767)   # saturating add
+    pano = torch.clamp(out, 0, 255).to(torch.float32)
+    if valid is not None:
+        pano = pano * valid[None]
+    return pano
 
 
 def blend_feather(bands, weights0_norm, layout: BandLayout, valid=None):

@@ -345,12 +345,6 @@ def prewarp_source(x: torch.Tensor, geom: StitchGeometry) -> torch.Tensor:
     return resize_planar(x, geom.compose_h, geom.compose_w)
 
 
-def check_supported(cfg: StitcherConfig, geom: StitchGeometry) -> None:
-    """Raise for the configurations whose paths are not ported yet."""
-    if cfg.camera_shards > 1:
-        raise NotImplementedError("camera_shards > 1 is not ported yet")
-
-
 def _compose_aux(cfg: StitcherConfig, geom: StitchGeometry,
                  cams_compose: List[CameraParams], sc: SeamCanvas,
                  seam_masks: np.ndarray, device) -> dict:
@@ -382,7 +376,6 @@ def calibrate(frames: np.ndarray, cfg: StitcherConfig, device="cpu"):
         raise ValueError(f"{frames.shape[0]} frames for {cfg.num_images} "
                          f"cameras")
     geom, cams_compose = plan_geometry(cfg)
-    check_supported(cfg, geom)
     sc, gains, seam_masks = _seam_phase(frames, cfg, geom, cams_compose)
     aux = _compose_aux(cfg, geom, cams_compose, sc, seam_masks, device)
     weight_pyr, valid_mask = build_weight_pyramids(aux["weights0"],
@@ -403,7 +396,6 @@ def rebuild_aux(cfg: StitcherConfig, geom: StitchGeometry,
     validity only (calibration.cpp:118-135), never image content, so
     every member but the gains (kept in the CalibState) follows from the
     geometry and equals what calibrate returned."""
-    check_supported(cfg, geom)
     _, cams_compose = plan_geometry(cfg)
     sc = _plan_seam_canvas(geom, cfg)
     seam_w, seam_h = _seam_size(cfg)

@@ -64,14 +64,16 @@ def _up_matrix(n: int, n_out: int) -> np.ndarray:
     return m.astype(np.float32)
 
 
-def _storage(precision: str) -> torch.dtype:
+def storage_dtype(precision: str) -> torch.dtype:
+    """The pyramid's storage dtype: bf16 under precision "bf16", else
+    f32."""
     return torch.bfloat16 if precision == "bf16" else torch.float32
 
 
 def pyr_down(x, precision: str = "highest"):
     """[..., H, W] -> [..., ceil(H/2), ceil(W/2)]: blur, then even-phase
     decimate."""
-    dt = _storage(precision)
+    dt = storage_dtype(precision)
     h, w = x.shape[-2], x.shape[-1]
     y = apply_taps(x.to(dt).float(), device_taps(_down_matrix, (w,), x.device),
                    -1).to(dt)
@@ -84,7 +86,7 @@ def pyr_up(x, out_h=None, out_w=None, precision: str = "highest",
     """[..., h, w] -> [..., out_h, out_w]: zero-stuff, then blur with the 4x
     kernel (cv::pyrUp). out_dtype overrides the storage dtype of the result
     (the blend collapse accumulates in f32 over bf16-stored levels)."""
-    dt = _storage(precision)
+    dt = storage_dtype(precision)
     h, w = x.shape[-2], x.shape[-1]
     out_h = out_h or 2 * h
     out_w = out_w or 2 * w
@@ -96,7 +98,7 @@ def pyr_up(x, out_h=None, out_w=None, precision: str = "highest",
 
 def gaussian_pyramid(x, levels: int, precision: str = "highest"):
     """Returns [x, down(x), ..., down^levels(x)] (levels+1 entries)."""
-    pyr = [x.to(_storage(precision))]
+    pyr = [x.to(storage_dtype(precision))]
     for _ in range(levels):
         pyr.append(pyr_down(pyr[-1], precision))
     return pyr

@@ -8,7 +8,10 @@ Torch twin of the JAX package's ``pipeline/runner.py``. Frame sets reach
 the card through ``Stitcher.stage_frames`` (pinned host buffers, uploaded
 on a side CUDA stream) and output frames come back through
 ``Stitcher.finalize_out`` (a pinned download); every wait on the card
-carries cfg.sync_timeout_ms (``utils/devsync``).
+carries cfg.sync_timeout_ms (``utils/devsync``). With camera shards a
+staged set is one piece per shard (``parallel/shard.ShardedFrames``);
+the stitch reads each piece on its device, and the re-solve gathers the
+whole set onto the stitcher's device (``Stitcher._frames``).
 
 Two pipeline modes (cfg.pipeline_mode, default "auto"):
 
@@ -98,6 +101,7 @@ class Runner:
         self.results = FrameQueue(max_size=cfg.results_max_size,
                                   drop_oldest=cfg.clear_buffers)
         #: the newest staged frame set, the recalibration thread's input
+        #: (each thread makes it ready on its own stream: Stitcher._ready)
         self._latest_frames = None
         self._latest_lock = threading.Lock()
         self._stop = threading.Event()
