@@ -43,6 +43,10 @@ its plain version on one shard's maps, the step's and the reduction's
 times and one sharded swap. Phase "int16": stitch_int16 through K1 in
 the reference's integer band against the f32 stitch of the same state,
 the integer pyramids and blend on the card against the host, its time.
+Phase "helpers": the JAX package's public helpers that the other phases
+do not drive (the f64 host band maps against the card's, the host entry
+compose_fused_maps, the Laplacian round trip, the HWC wrappers and the
+colour helpers), each on the card against its reference.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after.
@@ -1553,6 +1557,116 @@ def int16_phase(st, frames, scene, valid, dev):
         "stitch_int16_global_ms": int16_global_ms}
 
 
+MAP_HOST_PX = 0.01     # card band maps vs the f64 host build
+                       # (tests/test_geometry.py:110-130)
+FUSED_ATOL_PX = 1e-3   # compose_fused_maps vs compose_fused_maps_device
+PYR_ROUNDTRIP_ATOL = 1e-2   # tests/test_ops_gold.py:113-118
+HELPER_ATOL = 1e-3     # a helper on the card vs the same call on the CPU
+
+
+def helpers_phase(st, frames, nv12, pano_f32, dev):
+    """The JAX package's public helpers on the card at the main path's
+    rig: the f32 band maps against the f64 host build (identical -1
+    sentinels, < MAP_HOST_PX elsewhere); the host entry
+    compose_fused_maps on the card against compose_fused_maps_device,
+    with no mesh (also against the calibrated state_global's maps, which
+    K1 warps with) and with a perturbed mesh map; the Laplacian round
+    trip collapse_laplacian(laplacian_pyramid(pano, levels)) on the f32
+    pano; and the HWC wrappers (remap, resize, resize_scale) and colour
+    helpers on one 1080p frame against the same call on CPU tensors.
+    Launches no kernel. Returns metrics."""
+    from video_stitcher_tpu_torch.calib.calibration import (
+        compose_fused_maps, compose_fused_maps_device)
+    from video_stitcher_tpu_torch.geometry.cylindrical import (
+        band_backward_maps, band_backward_maps_device)
+    from video_stitcher_tpu_torch.ops import color, remap, resize
+    from video_stitcher_tpu_torch.ops.pyramid import (
+        collapse_laplacian, laplacian_pyramid)
+    from video_stitcher_tpu_torch.ops.resize import resize_scale
+    log("phase helpers")
+    geom, lay = st.geom, st.geom.layout
+    cams = st.aux["cams_map"]
+    t0 = time.perf_counter()
+    host = band_backward_maps(lay, cams)
+    host_s = time.perf_counter() - t0
+    card = band_backward_maps_device(lay, cams, dev).cpu().numpy()
+    card_ms = sync_ms(lambda: band_backward_maps_device(lay, cams, dev),
+                      reps=5)
+    hs = (host[:, 0] == -1) & (host[:, 1] == -1)
+    cs = (card[:, 0] == -1) & (card[:, 1] == -1)
+    d_maps = float(np.abs(host - card)[np.broadcast_to(
+        ~hs[:, None], host.shape)].max())
+    log(f"  band_backward_maps {host.shape}: host f64 {host_s:.3f} s, "
+        f"card f32 {card_ms:.4f} ms")
+    check(bool((hs == cs).all()) and d_maps < MAP_HOST_PX,
+          f"band maps on the card: sentinels identical ({int(hs.sum())} "
+          f"px), max abs {d_maps:.3g} < {MAP_HOST_PX} px elsewhere")
+
+    band_maps = st.aux["band_maps"]
+    bm = band_maps.cpu().numpy()
+    n, _, bh, bw = bm.shape
+    gy, gx = np.mgrid[0:bh, 0:bw].astype(np.float32)
+    mesh = perturbed_maps(np.broadcast_to(np.stack([gx, gy])[None],
+                                          (n, 2, bh, bw)))
+    fused_err = {}
+    for name, mm in (("no mesh", None), ("perturbed mesh", mesh)):
+        got = compose_fused_maps(geom, bm, mm, device=dev)
+        want = compose_fused_maps_device(
+            band_maps, None if mm is None else torch.as_tensor(
+                mm, device=dev), geom).cpu().numpy()
+        fused_err[name] = float(np.abs(got - want).max())
+        check(got.shape == want.shape and got.dtype == np.float32
+              and fused_err[name] <= FUSED_ATOL_PX,
+              f"compose_fused_maps on the card, {name}: max abs "
+              f"{fused_err[name]:.3g} <= {FUSED_ATOL_PX} px of "
+              f"compose_fused_maps_device")
+        if mm is None:
+            d_state = float(np.abs(
+                got - st.state_global.fused_maps.cpu().numpy()).max())
+            check(d_state <= FUSED_ATOL_PX, f"... and max abs {d_state:.3g}"
+                  f" of the calibrated state_global's maps")
+
+    levels = geom.num_bands
+    rec = collapse_laplacian(laplacian_pyramid(pano_f32, levels))
+    d_pyr = float((rec - pano_f32).abs().max())
+    pyr_ms = sync_ms(lambda: collapse_laplacian(
+        laplacian_pyramid(pano_f32, levels)), reps=5)
+    check(d_pyr <= PYR_ROUNDTRIP_ATOL,
+          f"collapse_laplacian(laplacian_pyramid(pano, {levels})) "
+          f"{tuple(pano_f32.shape)}: max abs {d_pyr:.3g} <= "
+          f"{PYR_ROUNDTRIP_ATOL}; {pyr_ms:.4f} ms")
+
+    frame = torch.as_tensor(frames[0])
+    maps0 = st.state.fused_maps[0].cpu()
+    oh, ow = frame.shape[0] // 2, frame.shape[1] // 2
+    calls = {
+        "remap": lambda f, m, nv: remap(f, m[0], m[1]),
+        "resize": lambda f, m, nv: resize(f, oh, ow),
+        "resize_scale 0.82": lambda f, m, nv: resize_scale(f, 0.82),
+        "rgb_to_gray": lambda f, m, nv: color.rgb_to_gray(f),
+        "bgr_to_gray": lambda f, m, nv: color.bgr_to_gray(f),
+        "swap_rb": lambda f, m, nv: color.swap_rb(f),
+        "nv12_to_bgr": lambda f, m, nv: color.nv12_to_bgr(nv),
+    }
+    nv0 = torch.as_tensor(nv12[0])
+    wrapper_err = {}
+    for name, fn in calls.items():
+        on_card = fn(frame.to(dev), maps0.to(dev), nv0.to(dev)).cpu()
+        on_host = fn(frame, maps0, nv0)
+        wrapper_err[name] = float((on_card.float() - on_host.float())
+                                  .abs().max())
+        check(on_card.shape == on_host.shape
+              and on_card.dtype == on_host.dtype
+              and wrapper_err[name] <= HELPER_ATOL,
+              f"{name} {tuple(on_card.shape)} on the card: max abs "
+              f"{wrapper_err[name]:.3g} <= {HELPER_ATOL} of the CPU call")
+    return {"band_maps_host_s": host_s, "band_maps_card_ms": card_ms,
+            "band_maps_card_vs_host_max_px": d_maps,
+            "compose_fused_maps_max_px": fused_err,
+            "pyramid_roundtrip_max_abs": d_pyr, "pyramid_roundtrip_ms": pyr_ms,
+            "wrappers_card_vs_cpu_max_abs": wrapper_err}
+
+
 def baseline_config4():
     """The JAX package's BASELINE config 4 (bench.py::p_4k): 6-camera 4K
     in, 8K out, keep_aspect_ratio + add_black_bars, global warp."""
@@ -1837,6 +1951,7 @@ def run(cfg, dev, cfg4, small4) -> int:
         f"call), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms on the "
         f"card alone (max abs vs K1 {lib_err:.3g}); bound {k1_bound:.4f} "
         f"ms by {k1_by} ({nbytes} bytes); calibrate {calib_s:.3f} s")
+    helper_metrics = helpers_phase(st, frames, nv12, pano_f32, dev)
     shard_launches, shard_k1_err, shard_metrics = shard_phase(
         st, cfg, frames, frames2, dev)
     int16_launches, int16_metrics = int16_phase(st, frames, scene, valid,
@@ -1857,7 +1972,7 @@ def run(cfg, dev, cfg4, small4) -> int:
         "build_s": built, "k1_launches_calibrate": calib_launches,
         **local_metrics, **resolve_metrics, **k2_metrics, **pw_metrics,
         "runner": runner_metrics, "shard": shard_metrics,
-        "int16": int16_metrics}}))
+        "int16": int16_metrics, "helpers": helper_metrics}}))
 
     log(json.dumps({"kernels": [{
         "name": "K1 remap_gain", "route": "cuda", "source": K1_SOURCE,

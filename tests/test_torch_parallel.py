@@ -8,7 +8,8 @@ of the JAX package's virtual host devices (tests/conftest.py).
   of tests/test_parallel.py: bit-equal with one shard, within 1 (that
   test's bound) with 2, 3, 4 and 8;
 - against the JAX package's build_sharded_step on its 8-device virtual
-  mesh, the JAX state carried across (interop.py): within 3;
+  mesh, the JAX state carried across (interop.py): the pano within 3,
+  the output frame (out_size) within 4;
 - Stitcher(camera_shards=4, device="cpu") through calibrate (with the
   CPW mesh), stage_frames, stitch*, swap_state, recalibrate_mesh,
   load_calibration and stitch_int16; the dry run; and the live Runner
@@ -169,6 +170,33 @@ def test_sharded_step_matches_jax(small, k):
     got = build_sharded_step(st.geom, [CPU] * k)(
         [f[s.lo:s.hi] for s in sh.shards], sh).numpy()
     assert _diff(got, want) <= 3
+
+
+#: the sharded bound (3, test_sharded_step_matches_jax) plus the 1 that
+#: resizing the f32 pano, not the u8 one as the JAX step does, can add
+SHARDED_OUT_VS_JAX = 3 + 1
+
+
+@pytest.mark.parametrize("k", [2, 8])
+def test_sharded_output_matches_jax(small, k):
+    """The output frame of both sharded steps built with out_size: the
+    port resizes the f32 pano (so one shard equals stitch_out bit for
+    bit), the JAX step the u8 pano."""
+    st, jst, frames = small
+    out_size = st._out_size(st.geom)
+    assert out_size == jst._out_size()
+    mesh = Mesh(np.array(jax.devices()[:k]), ("cam",))
+    jstate, corners, total = jshard.shard_state(jst.state, jst.geom, mesh)
+    jframes = jax.device_put(jshard.pad_cameras(frames, total),
+                             NamedSharding(mesh, P("cam")))
+    want = np.asarray(jshard.build_sharded_step(
+        jst.geom, mesh, out_size=out_size)(jframes, jstate, corners))
+    sh = shard_state(st.state, st.geom, [CPU] * k)
+    f = torch.as_tensor(frames)
+    got = build_sharded_step(st.geom, [CPU] * k, out_size)(
+        [f[s.lo:s.hi] for s in sh.shards], sh).numpy()
+    assert got.shape == want.shape == out_size + (3,)
+    assert _diff(got, want) <= SHARDED_OUT_VS_JAX
 
 
 def test_resolve_shard_devices(monkeypatch):

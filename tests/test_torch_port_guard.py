@@ -46,6 +46,9 @@ def test_import_pulls_in_no_jax():
         "    devsync, log, timing, trace, viz)\n"
         "from video_stitcher_tpu_torch.parallel import dryrun, shard\n"
         "from video_stitcher_tpu_torch.ops import filters, pyramid_int\n"
+        "from video_stitcher_tpu_torch.ops import *\n"
+        "from video_stitcher_tpu_torch.geometry import *\n"
+        "from video_stitcher_tpu_torch.utils import device\n"
         "assert native.load() is not None\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'video_stitcher_tpu' or m.startswith('video_stitcher_tpu.')]"
@@ -55,6 +58,110 @@ def test_import_pulls_in_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_package_import_stays_light():
+    """`import video_stitcher_tpu_torch` loads the config alone: no
+    torch, no stitcher, no kernel build."""
+    code = ("import sys\n"
+            "import video_stitcher_tpu_torch as p\n"
+            "assert p.__version__\n"
+            "heavy = [m for m in sys.modules if m == 'torch' or m in (\n"
+            "    'video_stitcher_tpu_torch.pipeline.stitcher',\n"
+            "    'video_stitcher_tpu_torch._build')]\n"
+            "assert not heavy, heavy\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def _module_constant(path: pathlib.Path, name: str):
+    """The literal value a module assigns to `name`, read from its source
+    (the JAX package is not imported)."""
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == name
+                for t in node.targets):
+            return ast.literal_eval(node.value)
+    raise AssertionError(f"{path} assigns no {name}")
+
+
+JAX_PKG = ROOT / "video_stitcher_tpu"
+
+
+@pytest.mark.parametrize("sub", ["", "ops", "geometry"])
+def test_init_exports_what_the_jax_package_exports(sub):
+    import importlib
+    port = importlib.import_module(
+        "video_stitcher_tpu_torch" + (f".{sub}" if sub else ""))
+    want = _module_constant(JAX_PKG / sub / "__init__.py", "__all__")
+    assert port.__all__ == want
+    for name in want:
+        assert getattr(port, name) is not None, name
+    if not sub:
+        assert port.__version__ == _module_constant(
+            JAX_PKG / "__init__.py", "__version__")
+
+
+def _public_names(path: pathlib.Path):
+    """Top-level public functions, classes and assignments of a module,
+    and an __init__'s imported names."""
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target,
+                                                            ast.Name):
+            names.add(node.target.id)
+        elif (isinstance(node, (ast.Import, ast.ImportFrom))
+              and path.name == "__init__.py"):
+            names |= {a.asname or a.name.split(".")[0] for a in node.names}
+    return {n for n in names
+            if not n.startswith("_") or n in ("__all__", "__version__")}
+
+
+#: ROADMAP's "Not ported, by design": TPU scheduling with no meaning on
+#: Hopper (the strip planner, layout repack, VMEM budget and their
+#: constants; the bf16 row-aligned source prep; the XLA compile cache and
+#: the CPU-backend commit; shard_map's camera padding; the mesh
+#: programs' compile prewarm).
+NOT_PORTED = {
+    "ops/remap_strips.py": {
+        "CHUNK_W", "ChunkStats", "GROUP", "PX", "ROT_KWS", "ROW_ALIGN",
+        "ROW_BLOCK", "SLAB_ROT", "SLAB_ROT64", "SLAB_W", "StripPlan",
+        "WIN_W", "chunk_stats_device", "device_vmem_bytes",
+        "groups_from_packed", "pad_maps", "pad_maps_device", "plan_strips",
+        "plan_strips_from_stats", "prep_source", "prep_source_nv12",
+        "repack_maps_lane", "resident_src_budget"},
+    "mesh/pipeline.py": {"prewarm_mesh_programs"},
+    "parallel/shard.py": {"pad_cameras"},
+    "utils/hostdev.py": {"commit", "host_eager"},
+    "utils/xla_cache.py": {"build_programs", "cache_dir", "enable",
+                           "prime"},
+}
+
+
+def test_every_public_name_of_the_jax_package_has_a_counterpart():
+    """Each public name of each module of the JAX package has one of the
+    same name in the port's file of the same path, or is listed as not
+    ported by design."""
+    missing = {}
+    for path in sorted(JAX_PKG.rglob("*.py")):
+        rel = path.relative_to(JAX_PKG).as_posix()
+        twin = PKG / rel
+        have = _public_names(twin) if twin.exists() else set()
+        gap = _public_names(path) - have - NOT_PORTED.get(rel, set())
+        if gap:
+            missing[rel] = sorted(gap)
+    assert not missing, missing
+    for rel, names in NOT_PORTED.items():       # no stale entry
+        assert names <= _public_names(JAX_PKG / rel), rel
+        twin = PKG / rel
+        assert not twin.exists() or not names & _public_names(twin), rel
 
 
 SOURCES = sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py"))
@@ -103,6 +210,25 @@ def test_stitcher_defaults_to_the_card():
         with pytest.raises(RuntimeError, match="CUDA"):
             Stitcher(cfg)
     assert Stitcher(cfg, device="cpu").device.type == "cpu"
+
+
+def test_compose_fused_maps_defaults_to_the_card():
+    from video_stitcher_tpu_torch.calib.calibration import (
+        compose_fused_maps, plan_geometry,
+    )
+    from video_stitcher_tpu_torch.geometry.cylindrical import (
+        band_backward_maps,
+    )
+    cfg = StitcherConfig(num_images=2, input_width=64, input_height=36,
+                         enable_local=False)
+    geom, cams = plan_geometry(cfg)
+    maps = band_backward_maps(geom.layout, cams)
+    if torch.cuda.is_available():
+        assert compose_fused_maps(geom, maps).shape == maps.shape
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            compose_fused_maps(geom, maps)
+    assert compose_fused_maps(geom, maps, device="cpu").shape == maps.shape
 
 
 def test_camera_shards_calibrate_and_shard_on_the_cpu():

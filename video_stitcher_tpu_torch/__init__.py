@@ -10,7 +10,9 @@ CUDA kernel written for Hopper in ``csrc/`` (the per-frame warp
 
 from video_stitcher_tpu_torch.config import StitcherConfig
 
-__all__ = ["StitcherConfig", "Stitcher"]
+__version__ = "0.1.0"
+
+__all__ = ["StitcherConfig", "Stitcher", "__version__"]
 
 
 def __getattr__(name):

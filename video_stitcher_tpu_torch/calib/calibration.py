@@ -46,6 +46,7 @@ from video_stitcher_tpu_torch.mesh.mesh2map import upsample_mesh
 from video_stitcher_tpu_torch.ops.morphology import dilate3x3
 from video_stitcher_tpu_torch.ops.remap import remap_planar
 from video_stitcher_tpu_torch.ops.resize import resize_planar
+from video_stitcher_tpu_torch.utils.device import resolve_device
 
 
 @dataclass(frozen=True)
@@ -303,6 +304,21 @@ def compose_fused_maps_device(band_maps: torch.Tensor,
             remap_planar(bm, mm[0], mm[1], border="replicate")
             for bm, mm in zip(band_maps, mesh_maps)])
     return _to_warp_source(maps, geom).contiguous()
+
+
+def compose_fused_maps(geom: StitchGeometry, band_maps: np.ndarray,
+                       mesh_maps: Optional[np.ndarray] = None,
+                       device=None) -> np.ndarray:
+    """The host entry of compose_fused_maps_device: numpy band maps (and
+    mesh maps) [N, 2, band_h, band_w] in, numpy f32 fused maps out,
+    computed on `device` (the card unless the caller asks for another;
+    raises on a host without CUDA)."""
+    dev = resolve_device(device)
+    mesh = None if mesh_maps is None else torch.as_tensor(
+        np.asarray(mesh_maps, np.float32), device=dev)
+    return compose_fused_maps_device(
+        torch.as_tensor(np.asarray(band_maps, np.float32), device=dev),
+        mesh, geom).cpu().numpy()
 
 
 def krinv_device(cams: List[CameraParams], device) -> torch.Tensor:

@@ -72,6 +72,12 @@ def detect_extents(cam: CameraParams, scale: float, src_w: int, src_h: int,
     return float(u_rel.min()), float(u_rel.max()), float(v.min()), float(v.max())
 
 
+def detect_v_range(cam: CameraParams, scale: float, src_w: int, src_h: int):
+    """(v_min, v_max) over the source border (detect_extents)."""
+    _, _, vmin, vmax = detect_extents(cam, scale, src_w, src_h)
+    return vmin, vmax
+
+
 def cylindrical_backward_map(cam: CameraParams, scale: float,
                              u: np.ndarray, v: np.ndarray):
     """(u, v) cylinder px grids -> (map_x, map_y) source px coords.
@@ -198,6 +204,24 @@ def plan_band_layout(cams: Sequence[CameraParams], src_w: int, src_h: int,
     return BandLayout(scale=scale, pano_w=pano_w, pano_h=pano_h, v0=v0, u0=float(x0),
                       band_w=band_w, band_h=pano_h, corners=tuple(corners),
                       num_bands=num_bands, wrap=False, gap=gap)
+
+
+def band_backward_maps(layout: BandLayout, cams: Sequence[CameraParams]
+                       ) -> np.ndarray:
+    """The host f64 builder of the per-camera band maps (replaces
+    CylindricalWarperGpu::buildMaps, warpers_cuda.cpp:254-276): numpy f32
+    [N, 2, band_h, band_w] of (map_x, map_y) source-pixel coords for the
+    band whose pano-left is layout.corners[i]. The reference the card's
+    band_backward_maps_device is held to; calibration uses the latter."""
+    ys = np.arange(layout.band_h, dtype=np.float64) + layout.v0
+    out = np.empty((len(cams), 2, layout.band_h, layout.band_w), np.float32)
+    for i, cam in enumerate(cams):
+        xs = (np.arange(layout.band_w, dtype=np.float64) + layout.u0
+              + layout.corners[i])
+        u, v = np.meshgrid(xs, ys)
+        out[i, 0], out[i, 1] = cylindrical_backward_map(cam, layout.scale,
+                                                        u, v)
+    return out
 
 
 def band_backward_maps_device(layout: BandLayout, cams: Sequence[CameraParams],

@@ -1,5 +1,6 @@
 """Colour conversions: NV12 -> planar RGB (full or compose scale) or
-channel-last RGB, RGB -> NV12, RGB -> I420, RGB -> gray.
+channel-last RGB / BGR, RGB -> NV12, RGB -> I420, RGB / BGR -> gray
+(planar or channel-last), BGR <-> RGB.
 
 Torch twin of the JAX package's ``ops/color.py`` (the reference's
 NV12->BGR cvtColor, networking.cpp:46, and BGR->GRAY,
@@ -42,6 +43,11 @@ def nv12_to_rgb(nv12: torch.Tensor) -> torch.Tensor:
     """nv12: u8 [..., H*3/2, W] -> f32 channel-last RGB [..., H, W, 3] in
     [0, 255] (the layout calibration takes)."""
     return nv12_to_rgb_planar(nv12).movedim(-3, -1)
+
+
+def nv12_to_bgr(nv12: torch.Tensor) -> torch.Tensor:
+    """nv12_to_rgb with the channels reversed: f32 BGR [..., H, W, 3]."""
+    return nv12_to_rgb(nv12).flip(-1)
 
 
 def rgb_to_nv12(rgb: torch.Tensor) -> torch.Tensor:
@@ -136,3 +142,18 @@ def rgb_to_gray_planar(rgb: torch.Tensor, axis: int = -3) -> torch.Tensor:
     coefficients (R*0.299 + G*0.587 + B*0.114)."""
     r, g, b = (rgb.select(axis, i).to(torch.float32) for i in range(3))
     return r * 0.299 + g * 0.587 + b * 0.114
+
+
+def rgb_to_gray(rgb: torch.Tensor) -> torch.Tensor:
+    """[..., 3] RGB -> f32 [...] gray: rgb_to_gray_planar on the last
+    axis."""
+    return rgb_to_gray_planar(rgb, axis=-1)
+
+
+def bgr_to_gray(bgr: torch.Tensor) -> torch.Tensor:
+    return rgb_to_gray(bgr.flip(-1))
+
+
+def swap_rb(img: torch.Tensor) -> torch.Tensor:
+    """BGR <-> RGB on the last axis."""
+    return img.flip(-1)

@@ -115,3 +115,11 @@ def laplacian_pyramid(x, levels: int, precision: str = "highest"):
     lap.append(gauss[levels])
     return lap
 
+
+def collapse_laplacian(lap):
+    """Inverse of laplacian_pyramid (blenders.cpp:786-790), in f32: the
+    blend's own collapse is blend/multiband.py::collapse_levels."""
+    x = lap[-1]
+    for lvl in reversed(lap[:-1]):
+        x = lvl + pyr_up(x, lvl.shape[-2], lvl.shape[-1])
+    return x

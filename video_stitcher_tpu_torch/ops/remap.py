@@ -121,3 +121,13 @@ def remap_planar(img, map_x, map_y, *, interpolation="linear",
     w10 = ((1 - fx) * fy)[None]
     w11 = (fx * fy)[None]
     return v00 * w00 + v01 * w01 + v10 * w10 + v11 * w11
+
+
+def remap(img, map_x, map_y, *, interpolation="linear", border="constant",
+          border_value=0.0):
+    """HWC (or HW) wrapper around remap_planar: img [H, W, C] or [H, W]
+    -> f32 [Ho, Wo, C] or [Ho, Wo]."""
+    planar = img[None] if img.dim() == 2 else img.movedim(-1, 0)
+    out = remap_planar(planar, map_x, map_y, interpolation=interpolation,
+                       border=border, border_value=border_value)
+    return out[0] if img.dim() == 2 else out.movedim(0, -1)

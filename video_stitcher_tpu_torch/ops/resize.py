@@ -45,14 +45,21 @@ def matrix_taps(m: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return np.ascontiguousarray(cols.T), np.ascontiguousarray(w.T)
 
 
+def _dense_taps(m: np.ndarray, device: torch.device):
+    """matrix_taps(m) as tensors on `device`."""
+    if not isinstance(m, np.ndarray) or m.ndim != 2:
+        raise TypeError("expected a dense [out, in] numpy matrix")
+    idx, w = matrix_taps(m)
+    return (torch.as_tensor(idx, device=device),
+            torch.as_tensor(w, device=device))
+
+
 @functools.lru_cache(maxsize=256)
 def device_taps(make_matrix: Callable[..., np.ndarray], args: tuple,
                 device: torch.device):
-    """matrix_taps(make_matrix(*args)) as tensors on `device`, cached so the
-    per-frame path uploads no index arrays."""
-    idx, w = matrix_taps(make_matrix(*args))
-    return (torch.as_tensor(idx, device=device),
-            torch.as_tensor(w, device=device))
+    """_dense_taps(make_matrix(*args), device), cached so the per-frame
+    path uploads no index arrays."""
+    return _dense_taps(make_matrix(*args), device)
 
 
 def apply_taps(x: torch.Tensor, taps, axis: int) -> torch.Tensor:
@@ -67,6 +74,18 @@ def apply_taps(x: torch.Tensor, taps, axis: int) -> torch.Tensor:
     return out
 
 
+def apply_interp_w(x: torch.Tensor, m: np.ndarray) -> torch.Tensor:
+    """x [..., H, W] -> f32 [..., H, Wo] through a dense [Wo, W]
+    interp-like numpy matrix (its nonzero taps only)."""
+    return apply_taps(x.to(torch.float32), _dense_taps(m, x.device), -1)
+
+
+def apply_interp_h(x: torch.Tensor, m: np.ndarray) -> torch.Tensor:
+    """x [..., H, W] -> f32 [..., Ho, W] through a dense [Ho, H]
+    interp-like numpy matrix (its nonzero taps only)."""
+    return apply_taps(x.to(torch.float32), _dense_taps(m, x.device), -2)
+
+
 def resize_planar(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """img [..., H, W] -> f32 [..., out_h, out_w], bilinear (width pass,
     then height pass, as the JAX package orders them)."""
@@ -79,3 +98,17 @@ def resize_planar(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
         x = apply_taps(x, device_taps(_interp_matrix, (h, out_h), x.device),
                        -2)
     return x
+
+
+def resize(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """HWC / HW wrapper around resize_planar."""
+    if img.dim() == 2:
+        return resize_planar(img, out_h, out_w)
+    return resize_planar(img.movedim(-1, 0), out_h, out_w).movedim(0, -1)
+
+
+def resize_scale(img: torch.Tensor, scale: float) -> torch.Tensor:
+    """Scale both axes like cv::resize(img, (), fx=scale, fy=scale):
+    output size = round(dim * scale)."""
+    h, w = img.shape[0], img.shape[1]
+    return resize(img, int(round(h * scale)), int(round(w * scale)))

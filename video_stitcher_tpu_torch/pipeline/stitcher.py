@@ -55,22 +55,7 @@ from video_stitcher_tpu_torch.parallel.shard import (
     ShardedFrames, ShardedState, build_sharded_step, camera_blocks,
     shard_state,
 )
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device the port computes on: the card unless the caller asks
-    for another (the tests pass "cpu")."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: the stitcher runs on the "
-                               "card; pass device='cpu' to run on the host")
-        device = "cuda"
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        # the index the card's tensors report, so that a tensor already
-        # on this device compares equal to it
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device
+from video_stitcher_tpu_torch.utils.device import resolve_device
 
 
 def resolve_shard_devices(shards: int, device: torch.device):
