@@ -47,6 +47,11 @@ Phase "helpers": the JAX package's public helpers that the other phases
 do not drive (the f64 host band maps against the card's, the host entry
 compose_fused_maps, the Laplacian round trip, the HWC wrappers and the
 colour helpers), each on the card against its reference.
+Phase "entries": the entry points as a user calls them, with no device
+argument: calibrate(frames, cfg) on the card, calibrate(frames, cfg,
+mesh_maps=m) against compose_fused_maps, K1 on the meshed maps, and a
+save_state -> load_state round trip whose stitch_out equals the saved
+state's.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after.
@@ -1667,6 +1672,116 @@ def helpers_phase(st, frames, nv12, pano_f32, dev):
             "wrappers_card_vs_cpu_max_abs": wrapper_err}
 
 
+ENTRY_MESH_SD_PX = 2.5     # the mesh vertices' displacement, px
+
+
+def entries_phase(cfg, frames, dev):
+    """The entry points as a user calls them, with no device argument
+    anywhere (the card is their default): calibrate(frames, cfg) leaves
+    every state and aux tensor on the card; calibrate(frames, cfg,
+    mesh_maps=m), m a smooth non-identity mesh from mesh_to_backward_maps,
+    gives the fused maps compose_fused_maps(geom, band_maps, m) gives (max
+    abs 0); save_state -> load_state lands on the card, and stitch_out
+    from it (a Stitcher that loads the file, load_calibration with
+    frames_shape) equals stitch_out from the state it was saved from (max
+    abs 0). K1 runs on the meshed maps over their tile plan within K1_ATOL
+    of its plain version. Returns (K1 launches on the path, K1's max abs
+    error, metrics)."""
+    import os
+    import tempfile
+    from video_stitcher_tpu_torch import Stitcher
+    from video_stitcher_tpu_torch.calib.calibration import (
+        calibrate, compose_fused_maps)
+    from video_stitcher_tpu_torch.calib.state import load_state, save_state
+    from video_stitcher_tpu_torch.mesh.mesh2map import mesh_to_backward_maps
+    from video_stitcher_tpu_torch.ops.remap_strips import (
+        plan_remap, remap_strips, remap_strips_plain)
+    log("phase entries")
+
+    def on_card(tensors):
+        return all(t.device.type == "cuda" for t in tensors)
+
+    def state_tensors(state):
+        return [state.fused_maps, state.gains, *state.weight_pyr,
+                state.valid_mask]
+
+    geom, state, aux = calibrate(frames, cfg)
+    check(on_card(state_tensors(state) + [
+        aux["band_maps"], aux["weights0"], aux["overlap_masks"]]),
+        "calibrate(frames, cfg): every state and aux tensor on the card")
+    lay = geom.layout
+    rng = np.random.default_rng(SEED)
+    n, m_ = cfg.mesh_height, cfg.mesh_width
+    verts = np.stack(np.meshgrid(np.linspace(0, lay.band_w - 1, m_),
+                                 np.linspace(0, lay.band_h - 1, n)), -1)
+    verts = (verts[None] + rng.normal(0, ENTRY_MESH_SD_PX,
+                                      (cfg.num_images, n, m_, 2))
+             ).astype(np.float32)
+    mesh = mesh_to_backward_maps(verts, lay.band_h, lay.band_w)
+    gy, gx = torch.meshgrid(torch.arange(lay.band_h, device=mesh.device),
+                            torch.arange(lay.band_w, device=mesh.device),
+                            indexing="ij")
+    mesh_px = float(torch.stack([mesh[:, 0] - gx, mesh[:, 1] - gy]).abs()
+                    .max())
+    check(mesh.device.type == "cuda" and mesh_px > 1.0,
+          f"mesh_to_backward_maps on the card: max |mesh - identity| "
+          f"{mesh_px:.3f} px")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    geom_m, meshed, aux_m = calibrate(frames, cfg, mesh_maps=mesh)
+    torch.cuda.synchronize()
+    calib_mesh_s = time.perf_counter() - t0
+    want = compose_fused_maps(geom_m, aux_m["band_maps"].cpu().numpy(),
+                              mesh.cpu().numpy())
+    d_fused = float(np.abs(meshed.fused_maps.cpu().numpy() - want).max())
+    check(on_card(state_tensors(meshed)) and d_fused == 0.0,
+          f"calibrate(frames, cfg, mesh_maps=m) {calib_mesh_s:.3f} s: fused "
+          f"maps max abs {d_fused:.3g} from compose_fused_maps(geom, "
+          f"band_maps, m)")
+
+    src = torch.as_tensor(frames).to(meshed.fused_maps.device).permute(
+        0, 3, 1, 2).contiguous()
+    plan = plan_remap(meshed.fused_maps, geom.src_h, geom.src_w)
+    got = remap_strips(src, meshed.fused_maps, meshed.gains, plan)
+    k1_err = float((got - remap_strips_plain(src, meshed.fused_maps,
+                                             meshed.gains)).abs().max())
+    check(k1_err <= K1_ATOL, f"K1 on the meshed maps {tuple(got.shape)} "
+          f"(tiles {plan.counts()}): max abs {k1_err:.3g} <= {K1_ATOL}")
+    k1_ms = kernel_ms(lambda: remap_strips(src, meshed.fused_maps,
+                                           meshed.gains, plan))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "meshed.npz")
+        t0 = time.perf_counter()
+        save_state(path, meshed)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        loaded = load_state(path)
+        check(on_card(state_tensors(loaded)),
+              f"save_state ({nbytes} bytes, {save_s:.3f} s) -> "
+              f"load_state: every tensor on the card")
+        saved = Stitcher(cfg)
+        saved.swap_state(meshed)
+        from_file = Stitcher(cfg)
+        from_file.load_calibration(path, frames_shape=frames.shape)
+    remap_strips.launches = 0
+    out_saved = saved.stitch_out(frames)
+    out_loaded = from_file.stitch_out(frames)
+    launches = remap_strips.launches
+    d_out = max_abs_u8(out_saved, out_loaded)
+    check(launches == 2 and from_file.device.type == "cuda" and d_out == 0,
+          f"stitch_out from the loaded checkpoint: max abs {d_out} from "
+          f"the state it was saved from, K1 launches {launches}")
+    log(f"  K1 on the entries path: {launches} launches, {k1_ms:.4f} ms on "
+        f"the card alone (meshed maps, source {tuple(src.shape)})")
+    return launches, k1_err, {
+        "calibrate_mesh_maps_s": calib_mesh_s, "mesh_max_px": mesh_px,
+        "fused_vs_compose_max_abs": d_fused, "k1_meshed_ms": k1_ms,
+        "k1_meshed_max_abs": k1_err, "k1_meshed_tiles": plan.counts(),
+        "checkpoint_bytes": nbytes, "save_state_s": save_s,
+        "stitch_out_loaded_max_abs": d_out}
+
+
 def baseline_config4():
     """The JAX package's BASELINE config 4 (bench.py::p_4k): 6-camera 4K
     in, 8K out, keep_aspect_ratio + add_black_bars, global warp."""
@@ -1952,6 +2067,8 @@ def run(cfg, dev, cfg4, small4) -> int:
         f"card alone (max abs vs K1 {lib_err:.3g}); bound {k1_bound:.4f} "
         f"ms by {k1_by} ({nbytes} bytes); calibrate {calib_s:.3f} s")
     helper_metrics = helpers_phase(st, frames, nv12, pano_f32, dev)
+    entry_launches, entry_k1_err, entry_metrics = entries_phase(cfg, frames,
+                                                                dev)
     shard_launches, shard_k1_err, shard_metrics = shard_phase(
         st, cfg, frames, frames2, dev)
     int16_launches, int16_metrics = int16_phase(st, frames, scene, valid,
@@ -1972,14 +2089,15 @@ def run(cfg, dev, cfg4, small4) -> int:
         "build_s": built, "k1_launches_calibrate": calib_launches,
         **local_metrics, **resolve_metrics, **k2_metrics, **pw_metrics,
         "runner": runner_metrics, "shard": shard_metrics,
-        "int16": int16_metrics, "helpers": helper_metrics}}))
+        "int16": int16_metrics, "helpers": helper_metrics,
+        "entries": entry_metrics}}))
 
     log(json.dumps({"kernels": [{
         "name": "K1 remap_gain", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": main_launches,
         "max_abs_err": max(k1_err, local_metrics[
             "k1_estimation_warp_max_abs"], pw_entry["max_abs_err"],
-            shard_k1_err),
+            shard_k1_err, entry_k1_err),
         "ms": k1_ms, "call_ms": k1_call_ms,
         "plain_ms": plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
         "share": k1_bound / k1_ms, "library_ms": lib_ms,
@@ -1989,7 +2107,8 @@ def run(cfg, dev, cfg4, small4) -> int:
                              "prewarp": pw_entry["launches"],
                              "runner": runner_launches,
                              "shard": shard_launches,
-                             "int16": int16_launches},
+                             "int16": int16_launches,
+                             "entries": entry_launches},
         "prewarp_f32_source": pw_entry},
         k2_entry]}))
     log(card)

@@ -35,7 +35,7 @@ from video_stitcher_tpu.ops import color as jcolor
 from video_stitcher_tpu.ops.morphology import dilate3x3 as j_dilate
 from video_stitcher_tpu_torch.features import ransac
 from video_stitcher_tpu_torch.features.match import (
-    _popcount32, hamming_matrix, knn_ratio_match,
+    hamming_matrix, knn_ratio_match,
 )
 from video_stitcher_tpu_torch.features.orb import detect_and_describe
 from video_stitcher_tpu_torch.interop import (
@@ -99,7 +99,7 @@ def test_orb_keypoints_match_jax(orb):
 def test_orb_descriptors_match_jax(orb):
     _, _, jk, tk = orb
     jd = torch.as_tensor(jk.desc.view(np.int32))
-    bits = _popcount32(torch.bitwise_xor(jd, tk.desc)).sum(-1)
+    bits = hamming_matrix(jd, tk.desc).diagonal()
     assert (bits == 0).float().mean() >= DESC_EQUAL
     assert int(bits.max()) <= DESC_BITS
 
@@ -154,11 +154,11 @@ def test_knn_ratio_match_exact(orb, source):
         v2 = rng.random(80) > 0.1
     want = matches_from_numpy(*(np.asarray(f) for f in jmatch.knn_ratio_match(
         jnp.asarray(d1), jnp.asarray(d2), jnp.asarray(v1), jnp.asarray(v2),
-        0.7)))
+        0.7)), device="cpu")
     a = keypoints_from_numpy(np.zeros((len(d1), 2)), np.zeros(len(d1)),
-                             np.zeros(len(d1)), v1, d1)
+                             np.zeros(len(d1)), v1, d1, device="cpu")
     b = keypoints_from_numpy(np.zeros((len(d2), 2)), np.zeros(len(d2)),
-                             np.zeros(len(d2)), v2, d2)
+                             np.zeros(len(d2)), v2, d2, device="cpu")
     got = knn_ratio_match(a.desc, b.desc, a.valid, b.valid, 0.7)
     np.testing.assert_array_equal(
         hamming_matrix(a.desc, b.desc, a.valid, b.valid).numpy(),

@@ -280,7 +280,7 @@ def test_state_handed_as_arrays(rig):
     st.swap_state(state_from_numpy(
         np.asarray(jst.state.fused_maps), np.asarray(jst.state.gains),
         [np.asarray(w) for w in jst.state.weight_pyr],
-        np.asarray(jst.state.valid_mask)))
+        np.asarray(jst.state.valid_mask), device="cpu"))
     assert _diff(st.stitch(rig["frames"]), jst.stitch(rig["frames"])) \
         <= MAX_ABS
 

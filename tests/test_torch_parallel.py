@@ -69,7 +69,7 @@ def small():
     st.swap_state(state_from_numpy(
         np.asarray(jst.state.fused_maps), np.asarray(jst.state.gains),
         [np.asarray(w) for w in jst.state.weight_pyr],
-        np.asarray(jst.state.valid_mask)))
+        np.asarray(jst.state.valid_mask), device="cpu"))
     return st, jst, frames
 
 

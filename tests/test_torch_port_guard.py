@@ -1,5 +1,11 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
-package, and its entry points run on the card unless asked for the CPU."""
+package, and its entry points run on the card unless asked for the CPU.
+Its contract, not only its names, is the JAX package's: every function,
+class and method the port has by a JAX name takes every parameter the
+JAX one takes (TPU-only parameters allowlisted, each with its reason),
+every `device` parameter is required or defaults to the card, and every
+config field is read by the port unless neither package reads it or it
+is not ported by design."""
 
 import ast
 import pathlib
@@ -164,6 +170,210 @@ def test_every_public_name_of_the_jax_package_has_a_counterpart():
         assert not twin.exists() or not names & _public_names(twin), rel
 
 
+def _params(fn):
+    """The parameter names of a def, self and cls left out."""
+    a = fn.args
+    names = [p.arg for p in a.posonlyargs + a.args + a.kwonlyargs]
+    names += [f"*{v.arg}" for v in (a.vararg,) if v is not None]
+    names += [f"**{v.arg}" for v in (a.kwarg,) if v is not None]
+    return [n for n in names if n not in ("self", "cls")]
+
+
+def _signatures(path: pathlib.Path):
+    """{qualified name: parameter names} of a module's public top-level
+    functions, and of its public classes' constructors (`__init__`, or
+    the fields of a dataclass or NamedTuple) and public methods."""
+    sigs = {}
+    for node in ast.parse(path.read_text()).body:
+        if getattr(node, "name", "_").startswith("_"):
+            continue
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            sigs[node.name] = _params(node)
+        elif isinstance(node, ast.ClassDef):
+            sigs[f"{node.name}.__init__"] = [
+                b.target.id for b in node.body
+                if isinstance(b, ast.AnnAssign)
+                and isinstance(b.target, ast.Name)]
+            for b in node.body:
+                if (isinstance(b, (ast.FunctionDef, ast.AsyncFunctionDef))
+                        and (b.name == "__init__"
+                             or not b.name.startswith("_"))):
+                    sigs[f"{node.name}.{b.name}"] = _params(b)
+    return sigs
+
+
+_STRIP = "the TPU strip plan's statics; K1 walks the tile plan (`plan`)"
+#: (file, name, JAX parameter) -> why the port's counterpart lacks it
+SIGNATURE_ALLOW = {
+    **{("calib/state.py", "CalibState.__init__", f): (
+        "TPU strip-plan field; the tile plan is built from the maps with "
+        "each state installed, never checkpointed")
+       for f in ("warp_strip_off", "warp_chunk_packed", "warp_maps_lane",
+                 "warp_groups")},
+    ("features/ransac.py", "ransac_homography", "key"):
+        "a JAX PRNG key; the port draws from a torch.Generator (`generator`)",
+    ("ops/remap_strips.py", "remap_strips", "src_planar"):
+        "renamed `src`: K1 reads the u8 or f32 planar source as it is",
+    ("ops/remap_strips.py", "remap_strips", "maps_lane"):
+        "the TPU's lane-repacked maps; K1 reads `maps` [N, 2, bh, bw]",
+    **{("ops/remap_strips.py", "remap_strips", f): _STRIP
+       for f in ("strip_off", "chunk_packed", "groups", "sh", "whc",
+                 "slab_w")},
+    ("ops/remap_strips.py", "remap_strips", "interpret"):
+        "Pallas interpret mode; a CPU tensor takes K1's plain version",
+    **{("ops/resize.py", f"apply_interp_{a}", "tiles_or_m"): (
+        "renamed `m`: the dense matrix only, the TPU's band tiles are not "
+        "ported") for a in "wh"},
+    **{("parallel/shard.py", n, f): (
+        "shard_map's mesh and axis; the port takes a list of `devices`")
+       for n in ("shard_state", "build_sharded_step")
+       for f in ("mesh", "axis")},
+    ("parallel/shard.py", "build_sharded_step", "total_cams"):
+        "shard_map's padded camera count; the port's shards need no padding",
+    ("parallel/shard.py", "build_sharded_step", "warp_static"): _STRIP,
+    **{("pipeline/stitcher.py", n, "warp_static"): _STRIP
+       for n in ("warp_bands", "stitch_pano", "stitch_pano_int16")},
+}
+
+
+def _signature_gaps(allow):
+    """(JAX parameters the port lacks, not allowlisted; allowlist entries
+    that no longer name such a gap)."""
+    gaps, used = [], set()
+    for path in sorted(JAX_PKG.rglob("*.py")):
+        rel = path.relative_to(JAX_PKG).as_posix()
+        twin = PKG / rel
+        if not twin.exists():
+            continue
+        port = _signatures(twin)
+        for name, params in _signatures(path).items():
+            for p in params:
+                if name in port and p not in port[name]:
+                    key = (rel, name, p)
+                    (used.add if key in allow else gaps.append)(key)
+    return gaps, sorted(set(allow) - used)
+
+
+def test_every_counterpart_takes_the_jax_parameters():
+    assert _signature_gaps(SIGNATURE_ALLOW) == ([], [])
+
+
+@pytest.mark.parametrize("entry", sorted(SIGNATURE_ALLOW))
+def test_signature_guard_needs_each_allowlist_entry(entry):
+    allow = {k: v for k, v in SIGNATURE_ALLOW.items() if k != entry}
+    assert _signature_gaps(allow) == ([entry], [])
+
+
+def test_signature_guard_catches_a_stale_entry():
+    stale = ("pipeline/stitcher.py", "Stitcher.load_calibration",
+             "frames_shape")
+    assert _signature_gaps({**SIGNATURE_ALLOW, stale: "x"}) == ([], [stale])
+
+
+def _device_defaults(path: pathlib.Path):
+    """(qualified name, default source or None if required) of every def
+    in a module with a `device` parameter."""
+    out = []
+
+    def walk(body, prefix):
+        for node in body:
+            if isinstance(node, ast.ClassDef):
+                walk(node.body, f"{prefix}{node.name}.")
+            elif isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                a = node.args
+                pos = a.posonlyargs + a.args
+                pairs = list(zip(pos, [None] * (len(pos) - len(a.defaults))
+                                 + a.defaults))
+                pairs += list(zip(a.kwonlyargs, a.kw_defaults))
+                for prm, d in pairs:
+                    if prm.arg == "device":
+                        out.append((prefix + node.name,
+                                    None if d is None else ast.unparse(d)))
+                walk(node.body, f"{prefix}{node.name}.")
+    walk(ast.parse(path.read_text()).body, "")
+    return out
+
+
+def test_every_device_parameter_is_required_or_defaults_to_the_card():
+    """A `device` parameter is required or None (resolve_device: the card).
+    The one other default allowed is the JAX package's own `device=False`
+    flag of `stitch*` (return the tensor on the device), where the JAX
+    counterpart has the same default."""
+    bad, flags = [], 0
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(PKG).as_posix()
+        jax_twin = JAX_PKG / rel
+        jax_defaults = (dict(_device_defaults(jax_twin))
+                        if jax_twin.exists() else {})
+        for name, default in _device_defaults(path):
+            if default in (None, "None"):
+                continue
+            if default == "False" and jax_defaults.get(name) == "False":
+                flags += 1
+                continue
+            bad.append((rel, name, default))
+    assert not bad, bad
+    assert flags == 5        # stitch, stitch_nv12, stitch_batch, stitch_out,
+                             # stitch_int16
+
+
+def _cfg_fields(path: pathlib.Path):
+    cls = next(n for n in ast.parse(path.read_text()).body
+               if isinstance(n, ast.ClassDef) and n.name == "StitcherConfig")
+    return {b.target.id for b in cls.body if isinstance(b, ast.AnnAssign)}
+
+
+def _attribute_reads(pkg: pathlib.Path):
+    """Every attribute name a package loads outside its config module,
+    as `x.name` or `getattr(x, "name", ...)`."""
+    names = set()
+    for path in pkg.rglob("*.py"):
+        if path == pkg / "config.py":
+            continue
+        for n in ast.walk(ast.parse(path.read_text())):
+            if isinstance(n, ast.Attribute) and isinstance(n.ctx, ast.Load):
+                names.add(n.attr)
+            elif (isinstance(n, ast.Call) and isinstance(n.func, ast.Name)
+                  and n.func.id == "getattr" and len(n.args) >= 2
+                  and isinstance(n.args[1], ast.Constant)):
+                names.add(n.args[1].value)
+    return names
+
+
+#: config fields the JAX package reads and the port does not, by design
+CONFIG_NOT_READ = {
+    "use_pallas_remap": "chose between the TPU strip kernel and XLA's "
+                        "gather, two TPU lowerings of what K1 computes",
+}
+
+
+def _config_gaps(by_design):
+    """(fields the JAX package reads and the port does not, unlisted;
+    listed fields the port reads or the JAX package does not)."""
+    fields = _cfg_fields(PKG / "config.py")
+    assert fields == _cfg_fields(JAX_PKG / "config.py")
+    port, jax_reads = _attribute_reads(PKG), _attribute_reads(JAX_PKG)
+    gaps = sorted(f for f in fields - port
+                  if f in jax_reads and f not in by_design)
+    stale = sorted(f for f in by_design
+                   if f in port or f not in jax_reads or f not in fields)
+    return gaps, stale
+
+
+def test_every_config_field_is_read_or_listed():
+    assert _config_gaps(CONFIG_NOT_READ) == ([], [])
+    fields = _cfg_fields(PKG / "config.py")
+    unread = fields - _attribute_reads(PKG) - set(CONFIG_NOT_READ)
+    assert unread == {"work_megapix", "seam_megapix", "compose_megapix"}
+    assert not unread & _attribute_reads(JAX_PKG)   # the scales' inputs
+
+
+def test_config_guard_needs_its_entry_and_catches_a_stale_one():
+    assert _config_gaps({}) == (["use_pallas_remap"], [])
+    assert _config_gaps({**CONFIG_NOT_READ, "camera_shards": "x"}) == (
+        [], ["camera_shards"])
+
+
 SOURCES = sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py"))
 
 
@@ -229,6 +439,59 @@ def test_compose_fused_maps_defaults_to_the_card():
         with pytest.raises(RuntimeError, match="CUDA"):
             compose_fused_maps(geom, maps)
     assert compose_fused_maps(geom, maps, device="cpu").shape == maps.shape
+
+
+def _entry_calls(tmp_path):
+    """Each entry that takes a device, as a call with `device` given: the
+    inputs are tiny and on the host."""
+    from video_stitcher_tpu_torch import interop
+    from video_stitcher_tpu_torch.calib import calibration, state
+    from video_stitcher_tpu_torch.mesh.mesh2map import mesh_to_backward_maps
+    cfg = StitcherConfig(num_images=2, input_width=64, input_height=36,
+                         enable_local=False)
+    frames = np.random.default_rng(0).integers(
+        0, 255, (2, 36, 64, 3)).astype(np.uint8)
+    geom = calibration.plan_geometry(cfg)[0]
+    ckpt = str(tmp_path / "c.npz")
+    state.save_state(ckpt, calibration.calibrate(frames, cfg,
+                                                 device="cpu")[1])
+    verts = np.stack(np.meshgrid(np.linspace(0, 15, 3), np.linspace(0, 7, 3)),
+                     -1)[None].astype(np.float32)
+    z = np.zeros(3)
+    return {
+        "calibrate": (lambda d: calibration.calibrate(frames, cfg,
+                                                      device=d)[1].gains),
+        "rebuild_aux": (lambda d: calibration.rebuild_aux(
+            cfg, geom, device=d)["band_maps"]),
+        "load_state": lambda d: state.load_state(ckpt, device=d).gains,
+        "mesh_to_backward_maps": (lambda d: mesh_to_backward_maps(
+            verts, 8, 16, device=d)),
+        "state_from_numpy": (lambda d: interop.state_from_numpy(
+            np.zeros((1, 2, 4, 4)), np.ones(1), [np.ones((1, 1, 4, 4))],
+            np.ones((4, 4)), device=d).gains),
+        "keypoints_from_numpy": (lambda d: interop.keypoints_from_numpy(
+            np.zeros((3, 2)), z, z, z > 0, np.zeros((3, 8), np.uint32),
+            device=d).xy),
+        "matches_from_numpy": (lambda d: interop.matches_from_numpy(
+            z, z, z, z > 0, device=d).query),
+    }
+
+
+ENTRIES = ("calibrate", "rebuild_aux", "load_state", "mesh_to_backward_maps",
+           "state_from_numpy", "keypoints_from_numpy", "matches_from_numpy")
+
+
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_entry_defaults_to_the_card(entry, tmp_path):
+    """With no device the entry's tensors land on the card, and on a host
+    without CUDA it raises; device="cpu" keeps them on the host."""
+    call = _entry_calls(tmp_path)[entry]
+    if torch.cuda.is_available():
+        assert call(None).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call(None)
+    assert call("cpu").device.type == "cpu"
 
 
 def test_camera_shards_calibrate_and_shard_on_the_cpu():

@@ -73,7 +73,7 @@ def ring(tmp_path_factory):
     by_arrays.swap_state(state_from_numpy(
         np.asarray(jst.state.fused_maps), np.asarray(jst.state.gains),
         [np.asarray(w) for w in jst.state.weight_pyr],
-        np.asarray(jst.state.valid_mask)))
+        np.asarray(jst.state.valid_mask), device="cpu"))
     by_ckpt = Stitcher(cfg, device="cpu")
     by_ckpt.load_calibration(ckpt)
     return dict(jst=jst, ports={"arrays": by_arrays, "checkpoint": by_ckpt},

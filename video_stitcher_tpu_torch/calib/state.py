@@ -13,6 +13,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from video_stitcher_tpu_torch.utils.device import resolve_device
+
 
 class CalibState(NamedTuple):
     #: f32 [N, 2, bandH, bandW] — fused backward maps (warp-source px per
@@ -56,7 +58,11 @@ def save_state(path: str, state: CalibState, extra: dict | None = None
     np.savez_compressed(path, **data)
 
 
-def load_state(path: str, device="cpu") -> CalibState:
+def load_state(path: str, device=None) -> CalibState:
+    """A checkpoint written by either package's save_state -> CalibState
+    on `device` (the card unless the caller asks for another; raises on
+    a host without CUDA)."""
+    device = resolve_device(device)
     with np.load(path) as z:
         n = int(z["n_levels"])
         return state_to(CalibState(

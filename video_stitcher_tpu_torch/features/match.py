@@ -3,8 +3,9 @@
 Torch twin of the JAX package's ``features/match.py`` (the reference's
 BruteForce-Hamming knnMatch(k=2) + ratio test,
 360_stitcher/featurefinder.cpp:50-68). Descriptors are int32 [..., K, 8]
-(the bits of the JAX package's uint32 words); PyTorch has no popcount, so
-the distance matrix counts bits with the SWAR sums on int64.
+(the bits of the JAX package's uint32 words). PyTorch has no popcount, so
+each descriptor's bits become +-1 and the distance matrix is one matmul:
+agreements minus disagreements, exact in f32 (integers up to 256).
 
 Hamming distances are small integers, so ties are the rule. The two
 nearest train descriptors are taken by the unique integer key
@@ -28,21 +29,20 @@ class Matches(NamedTuple):
     valid: torch.Tensor     # bool [..., K]
 
 
-def _popcount32(x: torch.Tensor) -> torch.Tensor:
-    """Set bits of each 32-bit word of int32 x, as int64."""
-    x = x.to(torch.int64) & 0xFFFFFFFF
-    x = x - ((x >> 1) & 0x55555555)
-    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-    x = (x + (x >> 4)) & 0x0F0F0F0F
-    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+def _signs(d: torch.Tensor) -> torch.Tensor:
+    """int32 words [..., K, W] -> f32 [..., K, 32 W]: +1 per set bit, -1
+    per clear one."""
+    shifts = torch.arange(32, dtype=torch.int32, device=d.device)
+    bits = (d[..., None] >> shifts) & 1
+    return bits.flatten(-2).to(torch.float32) * 2.0 - 1.0
 
 
 def hamming_matrix(d1: torch.Tensor, d2: torch.Tensor, valid1=None,
                    valid2=None) -> torch.Tensor:
     """d1 [..., K1, W], d2 [..., K2, W] int32 -> i32 [..., K1, K2] Hamming
     distances; invalid rows and columns get INVALID."""
-    x = torch.bitwise_xor(d1[..., :, None, :], d2[..., None, :, :])
-    dist = _popcount32(x).sum(-1).to(torch.int32)
+    agree = torch.matmul(_signs(d1), _signs(d2).transpose(-1, -2))
+    dist = ((32 * d1.shape[-1] - agree) * 0.5).round().to(torch.int32)
     big = torch.full_like(dist, INVALID)
     if valid1 is not None:
         dist = torch.where(valid1[..., :, None], dist, big)

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from video_stitcher_tpu_torch.ops.remap import remap_planar
+from video_stitcher_tpu_torch.utils.device import resolve_device
 
 
 @functools.lru_cache(maxsize=64)
@@ -143,11 +144,13 @@ def upsample_backward_disp(disp_c: torch.Tensor, band_h: int, band_w: int
 
 
 def mesh_to_backward_maps(verts: np.ndarray, band_h: int, band_w: int,
-                          iters: int = 3, step: int = 8, device="cpu"
+                          iters: int = 3, step: int = 8, device=None
                           ) -> torch.Tensor:
     """verts f32 [C, N, M, 2] warped vertex positions -> backward maps f32
-    [C, 2, band_h, band_w] on `device`: the host coarse inversion, then
-    the dense upsample."""
+    [C, 2, band_h, band_w] on `device` (the card unless the caller asks
+    for another; raises on a host without CUDA): the host coarse
+    inversion, then the dense upsample."""
+    device = resolve_device(device)
     disp_c = coarse_backward_disp(np.asarray(verts), band_h, band_w,
                                   iters=iters, step=step)
     return upsample_backward_disp(torch.as_tensor(disp_c, device=device),

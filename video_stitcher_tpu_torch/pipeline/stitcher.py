@@ -246,7 +246,7 @@ class Stitcher:
         """Calibrate the rig from one frame set; with cfg.enable_local,
         then solve the CPW mesh from it (calibration.cpp:299-302)."""
         geom, state, aux = calibrate(np.asarray(frames), self.cfg,
-                                     self.device)
+                                     device=self.device)
         self._install(geom, state, aux)
         if self.cfg.enable_local:
             self.recalibrate_mesh(frames)
@@ -272,9 +272,11 @@ class Stitcher:
     def save_calibration(self, path: str) -> None:
         save_state(path, self._snapshot()[0])
 
-    def load_calibration(self, path: str) -> None:
+    def load_calibration(self, path: str, frames_shape=None) -> None:
         """Install a checkpoint written by either package's save_state,
-        with the aux rebuilt from the geometry (rebuild_aux)."""
+        with the aux rebuilt from the geometry (rebuild_aux). The
+        geometry follows from the config alone, so `frames_shape` is
+        accepted, as the JAX package accepts it, and not read."""
         geom = self.geom or plan_geometry(self.cfg)[0]
         aux = rebuild_aux(self.cfg, geom, self.device)
         # the checkpoint's maps may hold a solved mesh: the closest stand-in

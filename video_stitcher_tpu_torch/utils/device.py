@@ -1,5 +1,7 @@
 """The device the port computes on, for every entry point that takes one
-(``Stitcher``, ``calib/calibration.py::compose_fused_maps``)."""
+(``Stitcher``, ``calibrate``, ``rebuild_aux``, ``compose_fused_maps``,
+``load_state``, ``mesh_to_backward_maps`` and the ``interop.py``
+carry-across functions): the card unless the caller names another."""
 
 from __future__ import annotations
 

@@ -20,7 +20,10 @@ link fail fast instead of accumulating threads.
 
 `read_head` and `to_host` wait for a CUDA tensor's producing work on a
 CUDA event recorded behind it on the current stream, polling
-`event.query()` until the deadline; a CPU tensor is ready at once.
+`event.query()` until the deadline. Anything else (a CPU tensor, a numpy
+array, an object with `ravel` and `__array__`) is read on a worker under
+`call_deadline`, as the JAX package reads every array, so a host read
+that blocks is bounded too.
 """
 
 from __future__ import annotations
@@ -125,11 +128,8 @@ def _await_ready(x, timeout_s: float) -> None:
     """Wait until the work queued so far on the current stream, which
     produces the CUDA tensor x, has finished: an event recorded behind it,
     polled until timeout_s passes (StallError past it). timeout_s <= 0
-    waits without a deadline. Returns at once for a tensor on another
-    device than CUDA, or for anything that is not a tensor."""
+    waits without a deadline."""
     import torch
-    if not (isinstance(x, torch.Tensor) and x.is_cuda):
-        return
     event = torch.cuda.Event()
     event.record(torch.cuda.current_stream(x.device))
     if timeout_s is None or timeout_s <= 0:
@@ -151,16 +151,25 @@ def _host(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def _read(x, read: Callable[[], np.ndarray], timeout_s: float
+          ) -> np.ndarray:
+    """read() of x, bounded by timeout_s: a CUDA tensor after its event
+    (_await_ready), anything else on a worker (call_deadline)."""
+    import torch
+    if isinstance(x, torch.Tensor) and x.is_cuda:
+        _await_ready(x, timeout_s)
+        return read()
+    return call_deadline(read, timeout_s)
+
+
 def read_head(x, timeout_s: float, n: int = 4) -> np.ndarray:
     """Force completion of a device tensor by waiting for the work that
     produces it, bounded by timeout_s, then read its first n elements
     (the product's standard completion sync, no full-frame download).
     Raises StallError past the deadline."""
-    _await_ready(x, timeout_s)
-    return _host(x.reshape(-1)[:n])
+    return _read(x, lambda: _host(x.ravel()[:n]), timeout_s)
 
 
 def to_host(x, timeout_s: float) -> np.ndarray:
     """Full device->host download with a deadline (StallError past it)."""
-    _await_ready(x, timeout_s)
-    return _host(x)
+    return _read(x, lambda: _host(x), timeout_s)
