@@ -52,6 +52,18 @@ argument: calibrate(frames, cfg) on the card, calibrate(frames, cfg,
 mesh_maps=m) against compose_fused_maps, K1 on the meshed maps, and a
 save_state -> load_state round trip whose stitch_out equals the saved
 state's.
+Phase "live": the Runner's fault paths at the default cell (6x1080p NV12
+over TCP): (a) a board drops its link mid-frame and reconnects into its
+freed slot, another sends a truncated frame the ingest resyncs past,
+every output equal to stitch_out of its set and the ingest counters
+equal to what was injected; (b) boards flooding a 2-deep capture queue,
+its drop counters equal to the frames lost; (c) a player that drops the
+egress link, the stream restarting with its height prelude; (d)
+tests/test_soak.py's all-features soak (framed ingest, the live re-solve
+with its animation and update_masks, HEVC egress), >= 15 of 20 frames, a
+re-solve landed, no stall, a decodable stream; (e)
+tests/test_egress_rate.py's 4K egress rate (I_PCM, and x265 where it
+loads).
 
 Each path runs with the launch counts set to 0 just before it and read
 just after.
@@ -768,7 +780,7 @@ def prewarp_phase(cfg4, dev, small4):
 
 # ---- the live Runner ------------------------------------------------------
 
-RUNNER_FRAMES = 100    # (a) frames stitched per pipeline mode over TCP
+RUNNER_FRAMES = 60     # (a) frames stitched per pipeline mode over TCP
 EGRESS_FRAMES = 30     # (c)
 RUNNER_4K_FRAMES = 30  # (d)
 TRACE_FRAMES = 20      # (e) frames under torch.profiler
@@ -866,8 +878,10 @@ def runner_numbers(r) -> dict:
 
 
 def log_runner(name: str, r, nums: dict) -> None:
+    def ms(key):
+        return "n/a" if nums[key] is None else f"{nums[key]:.3f} ms"
     log(f"  {name}: {nums['frames']} frames, steady {nums['fps']:.3f} fps"
-        f", latency p50 {nums['p50_ms']:.3f} ms p99 {nums['p99_ms']:.3f} ms"
+        f", latency p50 {ms('p50_ms')} p99 {ms('p99_ms')}"
         f" (first {STEADY_SKIP} left out of both); stages {r.timers.summary()}; "
         f"stalls sync {r.sync_stalls} stage {r.stage_stalls}")
 
@@ -1293,6 +1307,616 @@ def runner_phase(st, cfg, frames, frames2, st4, nv12_4):
     out4 = st4.stitch_out(torch.as_tensor(nv12_4, device=dev), device=True)
     metrics["transfers_4k"] = transfer_times(st4, nv12_4, out4)
     log_transfers("4K NV12 set / 8K output:", metrics["transfers_4k"])
+    return launches, metrics
+
+
+# ---- phase "live": the Runner's fault paths and all features at once ------
+
+LIVE_FRAMES = 60       # (a) frames over TCP through the two ingest faults
+LIVE_DROP_AT = 20      # (a) board 1 drops its link mid-frame at this set
+LIVE_TRUNC_AT = 40     # (a) board 2 sends a truncated extra frame here
+LIVE_TRUNC_BYTES = 100  # (a) cut from that frame's payload
+FLOOD_SETS = 48        # (b) sets each board sends flat out
+FLOOD_QUEUE = 2        # (b) the capture server's queue depth
+LIVE_EGRESS_FRAMES = 30  # (c)
+EGRESS_KILL_AFTER = 2  # (c) frames sent before the player drops the link
+SOAK_FRAMES = 20       # (d) tests/test_soak.py's frame count
+SOAK_MIN_FRAMES = 15   # (d) and its bound
+SOAK_RECALIB_MS = 100  # (d) tests/test_soak.py's 1500 ms, cut so that the
+                       # re-solves land inside 20 frames at the card's pace
+SOAK_GATE_SET = 11     # (d) the boards hold this set (frame 10) until a
+SOAK_GATE_S = 25.0     # re-solve has installed (bounded below the Runner's
+                       # 3 x 10 s source retries): steady fps and latency
+                       # (frames 10-19) are taken with re-solves landing
+EGRESS_4K_HW = (2048, 4096)  # (e) tests/test_egress_rate.py:64's frame
+EGRESS_4K_FRAMES = 12
+PCM_MIN_BYTES_PX = 1.5  # (e) its bounds: a lossless I420 mux, and
+PCM_MIN_FPS = 3.0       # the encode + convert + send path's rate
+LIVE_WAIT_S = 60.0     # every wait of the phase on a board, player or server
+
+
+def wait_for(pred, what: str, timeout: float = LIVE_WAIT_S) -> None:
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            raise TimeoutError(what)
+        time.sleep(1e-3)
+
+
+def connect_boards(ing, n: int):
+    """One loopback socket per camera, in camera order: each connects once
+    the previous one holds its slot (accept order gives the slots)."""
+    socks = []
+    for cam in range(n):
+        socks.append(socket.create_connection(("127.0.0.1", ing.port),
+                                              timeout=LIVE_WAIT_S))
+        wait_for(lambda: ing._native.stitchio_clients() > cam,
+                 f"board {cam} accepted")
+    return socks
+
+
+def live_runner_cfg(cfg, sets, **kw):
+    """The Runner's configuration over its own capture server: framed,
+    accept-order slots, port 0 (read back from the ingest)."""
+    import dataclasses
+    n, rows, w = sets[0].shape
+    return dataclasses.replace(
+        cfg, use_stream=True, capture_tcp_port=0, capture_framing=True,
+        capture_debug_order=True, capture_img_width=w,
+        capture_img_height=rows, pipeline_mode="threaded",
+        recalibrate=False, **kw)
+
+
+def run_with_boards(r, st, boards):
+    """drive_runner(r) with `boards(r, finished)` on a thread of its own
+    once the Runner's capture server listens; the board thread ends when
+    the run does. Returns (launches, want, board errors, board thread)."""
+    done = threading.Event()
+    errors = []
+
+    def finished():
+        # the Runner sets _stop before it closes its capture server
+        return done.is_set() or r._stop.is_set()
+
+    def board_main():
+        try:
+            if not r.source_ready.wait(LIVE_WAIT_S):
+                raise TimeoutError("the capture server never listened")
+            boards(r, finished)
+        except Exception as e:                   # noqa: BLE001
+            if not finished():       # not the Runner closing the server
+                errors.append(repr(e))
+    board_t = threading.Thread(target=board_main, daemon=True)
+    board_t.start()
+    try:
+        launches, want = drive_runner(r, st)
+    finally:
+        done.set()
+        board_t.join(timeout=LIVE_WAIT_S)
+    return launches, want, errors, board_t
+
+
+def live_faults(st, cfg, sets, expected):
+    """(a): over the Runner's capture server (framed, paced by has_room so
+    nothing drops), board 1 drops its link halfway through a frame and
+    reconnects, taking its freed slot, and resends that frame; board 2
+    sends a truncated frame before its full one. Every output equals
+    stitch_out of its set, and the counters equal what was injected."""
+    from video_stitcher_tpu_torch.io_plane.ingest import (
+        HEADER_BYTES, pack_frame)
+    from video_stitcher_tpu_torch.pipeline.runner import Runner
+    n = sets[0].shape[0]
+    sink = CheckSink(expected)
+    r = Runner(live_runner_cfg(cfg, sets), stitcher=st, sink=sink,
+               max_frames=LIVE_FRAMES, collect_latency=True)
+    payloads = [[f[cam].tobytes() for cam in range(n)] for f in sets]
+    sent = [0] * n              # whole frames each board sent
+    info = {}
+
+    def boards(r, finished):
+        ing = r._ingest
+        socks = connect_boards(ing, n)
+        seq = [0] * n
+        try:
+            for k in range(LIVE_FRAMES + 8):
+                while not (finished() or has_room(ing, k)):
+                    time.sleep(1e-3)
+                if finished():
+                    return
+                for cam in range(n):
+                    pay = payloads[k % len(sets)][cam]
+                    if cam == 1 and k == LIVE_DROP_AT:
+                        socks[1].sendall(pack_frame(pay, seq[1])[
+                            :HEADER_BYTES + len(pay) // 2])
+                        socks[1].close()
+                        wait_for(lambda: ing._native.stitchio_clients()
+                                 == n - 1, "the dropped link seen")
+                        socks[1] = socket.create_connection(
+                            ("127.0.0.1", ing.port), timeout=LIVE_WAIT_S)
+                        wait_for(lambda: ing._native.stitchio_clients()
+                                 == n, "the board reconnected")
+                        info["reconnected_at"] = k
+                    if cam == 2 and k == LIVE_TRUNC_AT:
+                        cut = pay[:len(pay) - LIVE_TRUNC_BYTES]
+                        socks[2].sendall(pack_frame(cut, seq[2]))
+                        seq[2] += 1
+                        info["truncated_bytes"] = HEADER_BYTES + len(cut)
+                    socks[cam].sendall(pack_frame(pay, seq[cam]))
+                    seq[cam] += 1
+                    sent[cam] += 1
+        finally:
+            for s in socks:
+                s.close()
+    launches, want, errors, board_t = run_with_boards(r, st, boards)
+    stats = r._ingest.stats()
+    nums = runner_numbers(r)
+    log_runner("ingest faults over TCP, threaded", r, nums)
+    log(f"    injected {info}; {r._ingest.stats_summary()}; "
+        f"frames_ok {[s['frames_ok'] for s in stats]} of sent {sent}; "
+        f"K1 launches {launches}")
+    check(not errors and not board_t.is_alive()
+          and set(info) == {"reconnected_at", "truncated_bytes"},
+          f"live (a): the boards injected both faults {info} {errors}")
+    check(r.frames_done == LIVE_FRAMES and sink.compared == LIVE_FRAMES
+          and sink.mismatched == 0,
+          f"live (a): {sink.compared} of {r.frames_done} outputs equal "
+          f"stitch_out of their set across the faults (max abs "
+          f"{sink.max_abs})")
+    want_rs = [int(c == 2) for c in range(n)]
+    check([s["resyncs"] for s in stats] == want_rs
+          and [s["seq_gaps"] for s in stats] == want_rs
+          and [s["bytes_skipped"] for s in stats]
+          == [info.get("truncated_bytes", -1) * x for x in want_rs]
+          and [s["drops"] for s in stats] == [0] * n,
+          f"live (a): resyncs {[s['resyncs'] for s in stats]}, seq_gaps "
+          f"{[s['seq_gaps'] for s in stats]}, bytes_skipped "
+          f"{[s['bytes_skipped'] for s in stats]}, drops "
+          f"{[s['drops'] for s in stats]} equal the injected")
+    check([s["frames_ok"] for s in stats] == sent,
+          "live (a): the reconnected board's frames land in its freed slot "
+          "(frames_ok per slot = whole frames each board sent)")
+    check(r.sync_stalls == 0 and r.stage_stalls == 0 and launches == want,
+          f"live (a): no stall; K1 launched {launches} times (= {want})")
+    nums.update(k1_launches=launches, injected=info,
+                frames_ok=[s["frames_ok"] for s in stats])
+    return launches, nums
+
+
+def live_drops(st, cfg, sets, expected):
+    """(b): the boards send FLOOD_SETS copies of one set flat out into a
+    capture server FLOOD_QUEUE deep, faster than the Runner consumes; at
+    the end each camera's drops equal its frames received less those the
+    Runner took and those left queued. Every output equals stitch_out of
+    the set."""
+    from video_stitcher_tpu_torch.io_plane.ingest import (
+        CaptureIngest, pack_frame)
+    from video_stitcher_tpu_torch.pipeline.runner import Runner
+    n = sets[0].shape[0]
+    rcfg = live_runner_cfg(cfg, sets)
+    ing = CaptureIngest(rcfg, max_queue=FLOOD_QUEUE)
+    ing.start()
+    flooded = threading.Event()
+
+    class FloodSource:
+        """The Runner's capture source over the shallow server: sets
+        until the flood is in and no complete set is left."""
+        reads = 0
+        queued = pending = None
+
+        def get_frames(self):
+            deadline = None
+            while True:
+                frames = ing.get_frames(timeout=0.2)
+                if frames is not None:
+                    self.reads += 1
+                    return frames
+                if flooded.is_set():
+                    if all(s["frames_ok"] == FLOOD_SETS
+                           for s in ing.stats()):
+                        return None      # no complete set is left
+                    deadline = deadline or time.monotonic() + LIVE_WAIT_S
+                    if time.monotonic() > deadline:
+                        return None
+
+        def release(self):
+            self.queued = [ing._native.stitchio_queue_size(c)
+                           for c in range(n)]
+            self.pending = [int(p is not None) for p in ing._pending]
+            ing.stop()
+
+    src = FloodSource()
+    sink = CheckSink([expected[0]], first=0)
+    r = Runner(rcfg, stitcher=st, source=src, sink=sink,
+               collect_latency=True)
+
+    def boards(r, finished):
+        socks = connect_boards(ing, n)
+        try:
+            for k in range(FLOOD_SETS):
+                for cam, s in enumerate(socks):
+                    s.sendall(pack_frame(sets[0][cam].tobytes(), k))
+        finally:
+            flooded.set()
+            for s in socks:
+                s.close()
+    launches, want, errors, board_t = run_with_boards(r, st, boards)
+    stats = ing.stats()
+    lost = [FLOOD_SETS - src.reads - src.pending[c] - src.queued[c]
+            for c in range(n)]
+    drops = [s["drops"] for s in stats]
+    nums = runner_numbers(r)
+    log_runner(f"flood into a {FLOOD_QUEUE}-deep queue, threaded", r, nums)
+    log(f"    {FLOOD_SETS} sets sent per board; Runner read {src.reads}; "
+        f"left queued {src.queued}, pending {src.pending}; drops {drops}, "
+        f"lost {lost}; K1 launches {launches}")
+    check(not errors and not board_t.is_alive(),
+          f"live (b): the boards flooded without error {errors}")
+    check([s["frames_ok"] for s in stats] == [FLOOD_SETS] * n
+          and drops == lost and sum(drops) > 0,
+          f"live (b): drops {drops} equal the frames lost {lost} (> 0)")
+    check(r.frames_done == src.reads - 1 == sink.compared
+          and sink.mismatched == 0 and r.sync_stalls == r.stage_stalls == 0,
+          f"live (b): {sink.compared} outputs of {r.frames_done} equal "
+          f"stitch_out of the set, no stall")
+    check(launches == want,
+          f"live (b): K1 launched {launches} times (= {want})")
+    nums.update(k1_launches=launches, drops=drops, reads=src.reads)
+    return launches, nums
+
+
+class SessionPlayer:
+    """Loopback player: each accepted connection's bytes in a list of its
+    own; once kill_after is set, it drops the connection as soon as that
+    holds kill_after bytes."""
+
+    def __init__(self):
+        self.srv = socket.socket()
+        self.srv.bind(("127.0.0.1", 0))
+        self.srv.listen(2)
+        self.srv.settimeout(0.1)
+        self.port = self.srv.getsockname()[1]
+        self.kill_after = None
+        self.sessions = []
+        self.ended = 0               # sessions whose connection closed
+        self._stop = threading.Event()
+        self.thread = threading.Thread(target=self._loop, daemon=True)
+        self.thread.start()
+
+    def _loop(self):
+        while not self._stop.is_set():
+            try:
+                conn, _ = self.srv.accept()
+            except socket.timeout:
+                continue
+            chunks = []
+            self.sessions.append(chunks)
+            got = 0
+            conn.settimeout(0.1)
+            with conn:
+                while not self._stop.is_set():
+                    if self.kill_after is not None and got >= self.kill_after:
+                        self.kill_after = None
+                        break
+                    try:
+                        data = conn.recv(1 << 22)
+                    except socket.timeout:
+                        continue
+                    except OSError:
+                        break
+                    if not data:
+                        break
+                    chunks.append(data)
+                    got += len(data)
+            self.ended += 1
+
+    def stop(self, sessions: int) -> bool:
+        """Once `sessions` connections came and all closed (bounded),
+        stop; whether they did and the thread ended."""
+        try:
+            wait_for(lambda: len(self.sessions) >= sessions
+                     and self.ended == len(self.sessions),
+                     "the egress closed its connections")
+        except TimeoutError:
+            pass                      # the caller's check fails instead
+        self._stop.set()
+        self.thread.join(timeout=LIVE_WAIT_S)
+        self.srv.close()
+        return not self.thread.is_alive() and len(self.sessions) >= sessions \
+            and self.ended == len(self.sessions)
+
+    def session(self, i: int) -> bytes:
+        return b"".join(self.sessions[i])
+
+
+def nal_units(stream: bytes):
+    from video_stitcher_tpu_torch.io_plane.egress import AnnexBFramer
+    framer = AnnexBFramer()
+    return framer.push(stream) + [framer.flush()]
+
+
+def nal_types(units):
+    return [(u[u.index(b"\x01") + 1] >> 1) & 0x3F for u in units]
+
+
+def stream_decodes(enc: str, stream: bytes, sent) -> str:
+    """Whether `stream` (one egress session's HEVC after the height
+    prelude) decodes to the frames `sent` to it, by the layer that served:
+    I_PCM is lossless and deterministic, so its stream must equal a fresh
+    encoder's of those frames (whose output FFmpeg decodes bit-exact,
+    tests/test_torch_hevc.py); x265 goes through the in-process decoder;
+    a subprocess layer is parsed. Returns "" or what failed."""
+    from video_stitcher_tpu_torch.io_plane import hevc_lavc, hevc_pcm
+    from video_stitcher_tpu_torch.io_plane.egress import PlayerEgress
+    if nal_types(nal_units(stream)[:3]) != [32, 33, 34]:
+        return "the stream does not open with VPS/SPS/PPS"
+    h, w = sent[0].shape[:2]
+    if enc == "pcm":
+        ref = hevc_pcm.create(w, h)
+        want = b"".join(ref.encode(PlayerEgress._to_i420(f).tobytes())
+                        for f in sent)
+        ref.close()
+        return "" if stream == want else "I_PCM stream differs from the " \
+            "encoding of the frames sent"
+    if enc == "x265" and hevc_lavc.load_native() is not None:
+        dec = hevc_lavc.LavcHevcDecoder()
+        try:
+            pics = dec.decode(stream) + dec.flush()
+        finally:
+            dec.close()
+        ok = 1 <= len(pics) <= len(sent) and all(
+            (pw, ph) == (w, h) for _, pw, ph in pics)
+        return "" if ok else f"x265 decoded {len(pics)} pictures"
+    pics = count_pictures(nal_units(stream))
+    return "" if 0 < pics <= len(sent) else f"{pics} pictures parsed"
+
+
+def live_egress(st, cfg, sets, expected):
+    """(c): the Runner streams HEVC to a player that drops the link once
+    EGRESS_KILL_AFTER frames went out; the egress reconnects, the new session opens with
+    the height prelude and a fresh stream that decodes to the frames sent
+    after it, and the Runner runs to its end."""
+    import dataclasses
+    from video_stitcher_tpu_torch.io_plane.egress import PlayerEgress
+    from video_stitcher_tpu_torch.pipeline.runner import Runner
+    oh = expected[0].shape[0]
+    hh = oh + (oh & 1)
+    player = SessionPlayer()
+    rcfg = dataclasses.replace(cfg, player_address="127.0.0.1",
+                               player_tcp_port=player.port,
+                               send_results=True, recalibrate=False,
+                               pipeline_mode="threaded")
+    eg = PlayerEgress(rcfg, encoder="hevc")
+    sent = []                     # (the socket it went out on, frame)
+    send = eg.send_frame
+
+    def recording_send(frame):
+        send(frame)              # reconnects inside on a dropped link
+        sent.append((eg.sock, eg._pad_even(frame)))
+        if len(sent) == EGRESS_KILL_AFTER:
+            player.kill_after = 0        # the player drops the link now
+    eg.send_frame = recording_send
+    sink = CheckSink(expected)
+    r = Runner(rcfg, stitcher=st, egress=eg, sink=sink,
+               source=CycleSource(sets, LIVE_EGRESS_FRAMES + 1),
+               collect_latency=True)
+    try:
+        launches, want = drive_runner(r, st)
+    finally:
+        stopped = player.stop(2)
+    enc = eg.selected_encoder
+    sessions = [player.session(i) for i in range(len(player.sessions))]
+    heights = [struct.unpack("<i", s[:4])[0] if len(s) >= 4 else None
+               for s in sessions]
+    after = [f for sock, f in sent if sock is sent[-1][0]]
+    err = (stream_decodes(enc, sessions[1][4:], after)
+           if len(sessions) == 2 and after else "no second session")
+    nums = runner_numbers(r)
+    log_runner(f"egress {enc} with a dropped player link, threaded", r, nums)
+    log(f"    sessions {len(sessions)}, bytes {[len(s) for s in sessions]},"
+        f" height preludes {heights}; {len(after)} frames sent into the "
+        f"second; its stream: {err or 'decodes to them'}")
+    check(stopped and len(sessions) == 2 and heights == [hh, hh]
+          and sent and sent[0][0] is not sent[-1][0],
+          f"live (c): the player saw the link drop and one reconnect, each "
+          f"session opening with the height {heights} (= {hh})")
+    check(not err, f"live (c): the restarted stream ({enc}) is clean: "
+          f"{err or 'ok'}")
+    check(r.frames_done == LIVE_EGRESS_FRAMES and sink.mismatched == 0
+          and r.sync_stalls == r.stage_stalls == 0 and launches == want,
+          f"live (c): the Runner lived on, {r.frames_done} frames, outputs "
+          f"equal, no stall, K1 {launches} (= {want})")
+    nums.update(k1_launches=launches, selected_encoder=enc,
+                sessions=[len(s) for s in sessions],
+                frames_after_reconnect=len(after))
+    return launches, nums
+
+
+def live_soak(st, cfg, sets):
+    """(d): tests/test_soak.py at the default cell: framed TCP NV12 from
+    six boards (paced by has_room: the Runner's own rate), the live
+    re-solve with its animation and update_masks, and HEVC egress to a
+    loopback player, all at once, SOAK_FRAMES frames. The boards hold
+    frame 10's set until a re-solve has installed (bounded), so one lands
+    however the host's threads share the run's first second."""
+    import dataclasses
+    from video_stitcher_tpu_torch.io_plane.egress import PlayerEgress
+    from video_stitcher_tpu_torch.io_plane.ingest import pack_frame
+    from video_stitcher_tpu_torch.pipeline.runner import Runner
+    n = sets[0].shape[0]
+    player = SessionPlayer()
+    rcfg = live_runner_cfg(
+        cfg, sets, player_address="127.0.0.1", player_tcp_port=player.port,
+        send_results=True)
+    rcfg = dataclasses.replace(
+        rcfg, recalibrate=True, recalib_interp=True,
+        recalib_del_ms=SOAK_RECALIB_MS, update_masks=True)
+    eg = PlayerEgress(rcfg, encoder="hevc")
+    sent = []
+    send = eg.send_frame
+
+    def recording_send(frame):
+        send(frame)
+        sent.append(eg._pad_even(frame))
+    eg.send_frame = recording_send
+    r = Runner(rcfg, stitcher=st, egress=eg, max_frames=SOAK_FRAMES,
+               collect_latency=True)
+    payloads = [[f[cam].tobytes() for cam in range(n)] for f in sets]
+
+    gate = {}
+
+    def boards(r, finished):
+        ing = r._ingest
+        socks = connect_boards(ing, n)
+        try:
+            k = 0
+            while not finished():
+                if k == SOAK_GATE_SET and "s" not in gate:
+                    t0 = time.perf_counter()
+                    wait_for(lambda: finished() or r.recalibs_done >= 1,
+                             "a re-solve installed", SOAK_GATE_S)
+                    gate["s"] = time.perf_counter() - t0
+                if not has_room(ing, k):
+                    time.sleep(1e-3)
+                    continue
+                for cam, s in enumerate(socks):
+                    s.sendall(pack_frame(payloads[k % len(sets)][cam], k))
+                k += 1
+        finally:
+            for s in socks:
+                s.close()
+    masks = st.cfg
+    st.cfg = dataclasses.replace(st.cfg, update_masks=True)
+    try:
+        launches, want, errors, board_t = run_with_boards(r, st, boards)
+    finally:
+        st.cfg = masks
+        stopped = player.stop(1)
+    enc = eg.selected_encoder
+    data = player.session(0) if player.sessions else b""
+    hh = struct.unpack("<i", data[:4])[0] if len(data) >= 4 else None
+    err = stream_decodes(enc, data[4:], sent) if sent else "nothing sent"
+    nums = runner_numbers(r)
+    log_runner(f"all features at once ({enc} egress), threaded", r, nums)
+    log(f"    re-solves installed {r.recalibs_done} (recalib_del_ms "
+        f"{SOAK_RECALIB_MS}; set {SOAK_GATE_SET} held {gate.get('s', 0):.3f}"
+        f" s for the first), swaps {len(r.swap_ms)}; "
+        f"{r._ingest.stats_summary()}; egress {len(data)} bytes, height "
+        f"{hh}, stream: {err or 'decodes to the frames sent'}; K1 launches "
+        f"{launches}")
+    check(not errors and not board_t.is_alive() and stopped,
+          f"live (d): boards and player ended without error {errors}")
+    check(r.frames_done >= SOAK_MIN_FRAMES,
+          f"live (d): {r.frames_done} of {SOAK_FRAMES} frames "
+          f"(>= {SOAK_MIN_FRAMES})")
+    check(r.recalibs_done >= 1, f"live (d): {r.recalibs_done} re-solves "
+          f"landed (>= 1)")
+    check(r.sync_stalls == 0 and r.stage_stalls == 0,
+          f"live (d): stalls sync {r.sync_stalls} stage {r.stage_stalls}")
+    check(bool(sent) and hh == sent[0].shape[0] and not err,
+          f"live (d): the stream ({enc}) opens with the height {hh} and "
+          f"{err or 'decodes to the frames sent'}")
+    check(launches == want,
+          f"live (d): K1 launched {launches} times (= {want})")
+    nums.update(k1_launches=launches, recalibs_done=r.recalibs_done,
+                selected_encoder=enc, egress_bytes=len(data))
+    return launches, nums
+
+
+def egress_rate_4k():
+    """(e): tests/test_egress_rate.py:64 on the card machine's host:
+    EGRESS_4K_FRAMES 4K frames through PlayerEgress("hevc") into a
+    loopback drain, with the built-in I_PCM layer pinned, and with x265
+    where it loads. I_PCM held to the seed's >= 1.5 B/px and >= 3 fps."""
+    import shutil
+    from video_stitcher_tpu_torch import StitcherConfig
+    from video_stitcher_tpu_torch.io_plane import hevc_lavc
+    from video_stitcher_tpu_torch.io_plane.egress import PlayerEgress
+    h, w = EGRESS_4K_HW
+    base = np.random.default_rng(0).integers(0, 255, (h, w, 3)
+                                              ).astype(np.uint8)
+    have_x265 = hevc_lavc.create_encoder(64, 64) is not None
+    out = {}
+    for kind in ("pcm", "x265"):
+        if kind == "x265" and not have_x265:
+            log("  4K egress x265: not measured (libx265 does not load: no "
+                "libavcodec headers on this host)")
+            out[kind] = None
+            continue
+        player = SessionPlayer()
+        cfg = StitcherConfig(player_address="127.0.0.1",
+                             player_tcp_port=player.port)
+        create, which = hevc_lavc.create_encoder, shutil.which
+        if kind == "pcm":
+            hevc_lavc.create_encoder = lambda *a, **k: None
+            shutil.which = lambda name: None
+        try:
+            eg = PlayerEgress(cfg, encoder="hevc")
+            t0 = time.perf_counter()
+            for t in range(EGRESS_4K_FRAMES):
+                eg.send_frame(np.roll(base, 16 * t, axis=1))
+            tail = eg._enc.finish() if eg._enc is not None else b""
+            dt = time.perf_counter() - t0
+            if tail:
+                eg.sock.sendall(tail)
+            enc = eg.selected_encoder
+            eg.close()
+        finally:
+            hevc_lavc.create_encoder, shutil.which = create, which
+        stopped = player.stop(1)
+        nbytes = len(player.session(0)) - 4
+        fps = EGRESS_4K_FRAMES / dt
+        per_frame = nbytes / EGRESS_4K_FRAMES
+        log(f"  4K egress {kind} ({enc}): {fps:.3f} fps, "
+            f"{per_frame / 1e6:.4f} MB a frame ({per_frame / (w * h):.4f} "
+            f"B/px), {EGRESS_4K_FRAMES} frames of {w}x{h} in {dt:.3f} s")
+        check(stopped and enc == kind, f"4K egress: served by {enc} (= "
+              f"{kind}), the drain ended")
+        if kind == "pcm":
+            check(per_frame >= PCM_MIN_BYTES_PX * w * h and
+                  fps >= PCM_MIN_FPS,
+                  f"4K egress I_PCM: {per_frame / (w * h):.4f} B/px >= "
+                  f"{PCM_MIN_BYTES_PX}, {fps:.3f} fps >= {PCM_MIN_FPS}")
+        else:
+            check(per_frame < 0.15 * 1.5 * w * h,
+                  f"4K egress x265: {per_frame:.0f} B a frame, under 0.15 "
+                  f"of I_PCM's")
+        out[kind] = {"fps": fps, "mb_per_frame": per_frame / 1e6,
+                     "bytes_per_px": per_frame / (w * h), "seconds": dt}
+    return out
+
+
+def live_phase(st, cfg, frames, frames2):
+    """Phase "live": the Runner's fault paths at the default cell, each
+    run with K1's count from 0: (a) ingest faults, (b) queue drops, (c) an
+    egress reconnect, (d) every feature at once; and (e) the 4K egress
+    rate. Runs in a temporary directory. Returns (K1 launches, metrics)."""
+    import os
+    import tempfile
+    from video_stitcher_tpu_torch.ops.color import rgb_to_nv12
+    log("phase live")
+    dev = st.device
+    rng = np.random.default_rng(SEED + 2)
+    frames3 = np.clip(frames.astype(np.int16)
+                      + rng.integers(-6, 7, frames.shape), 0, 255
+                      ).astype(np.uint8)
+    sets = [rgb_to_nv12(torch.as_tensor(f, device=dev)).cpu().numpy()
+            for f in (frames, frames2, frames3)]
+    expected = [st.stitch_out(s) for s in sets]
+    launches, metrics = {}, {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            launches["ingest faults"], metrics["faults"] = live_faults(
+                st, cfg, sets, expected)
+            launches["queue drops"], metrics["drops"] = live_drops(
+                st, cfg, sets, expected)
+            launches["egress reconnect"], metrics["egress_reconnect"] = \
+                live_egress(st, cfg, sets, expected)
+            launches["soak"], metrics["soak"] = live_soak(st, cfg, sets)
+        finally:
+            os.chdir(cwd)
+    metrics["egress_4k"] = egress_rate_4k()
     return launches, metrics
 
 
@@ -2077,6 +2701,7 @@ def run(cfg, dev, cfg4, small4) -> int:
     pw_metrics, pw_entry, st4, nv12_4 = prewarp_phase(cfg4, dev, small4)
     runner_launches, runner_metrics = runner_phase(st, cfg, frames, frames2,
                                                    st4, nv12_4)
+    live_launches, live_metrics = live_phase(st, cfg, frames, frames2)
     log(json.dumps({"metrics": {
         "card": card, "calibrate_s": calib_s,
         "stitch_out_ms": stitch_out_ms,
@@ -2090,7 +2715,7 @@ def run(cfg, dev, cfg4, small4) -> int:
         **local_metrics, **resolve_metrics, **k2_metrics, **pw_metrics,
         "runner": runner_metrics, "shard": shard_metrics,
         "int16": int16_metrics, "helpers": helper_metrics,
-        "entries": entry_metrics}}))
+        "entries": entry_metrics, "live": live_metrics}}))
 
     log(json.dumps({"kernels": [{
         "name": "K1 remap_gain", "route": "cuda", "source": K1_SOURCE,
@@ -2108,7 +2733,8 @@ def run(cfg, dev, cfg4, small4) -> int:
                              "runner": runner_launches,
                              "shard": shard_launches,
                              "int16": int16_launches,
-                             "entries": entry_launches},
+                             "entries": entry_launches,
+                             "live": live_launches},
         "prewarp_f32_source": pw_entry},
         k2_entry]}))
     log(card)

@@ -258,13 +258,16 @@ def test_egress_reconnects_with_a_clean_restart():
 def test_egress_reconnect_racing_close():
     """A player that drops every connection after a few bytes drives
     send_frame through its reconnect path while close() lands from
-    another thread: the sender ends promptly on "egress closed"."""
+    another thread: the sender ends promptly on "egress closed". close()
+    comes once the player has taken three connections, so the sender is
+    inside its reconnect loop when it lands."""
     server = socket.socket()
-    server.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
     server.bind(("127.0.0.1", 0))
     server.listen(4)
     server.settimeout(0.2)
     stop = threading.Event()
+    reconnecting = threading.Event()
+    accepted = []
 
     def flaky_player():
         while not stop.is_set():
@@ -272,13 +275,16 @@ def test_egress_reconnect_racing_close():
                 conn, _ = server.accept()
             except (socket.timeout, OSError):
                 continue
+            accepted.append(1)
+            if len(accepted) >= 3:
+                reconnecting.set()
             try:
                 conn.recv(64)
             except OSError:
                 pass
             conn.close()
 
-    srv_t = threading.Thread(target=flaky_player, daemon=True)
+    srv_t = threading.Thread(target=flaky_player)
     srv_t.start()
     cfg = StitcherConfig(player_address="127.0.0.1",
                          player_tcp_port=server.getsockname()[1])
@@ -301,13 +307,18 @@ def test_egress_reconnect_racing_close():
 
     snd_t = threading.Thread(target=sender)
     snd_t.start()
-    time.sleep(0.5)
-    eg.close()
-    snd_t.join(timeout=15)
-    stop.set()
-    srv_t.join(timeout=5)
-    server.close()
+    try:
+        assert reconnecting.wait(timeout=30), "the sender never reconnected"
+        eg.close()
+        snd_t.join(timeout=30)
+    finally:
+        eg.close()
+        stop.set()
+        snd_t.join(timeout=30)
+        srv_t.join(timeout=30)
+        server.close()
     assert not snd_t.is_alive(), "sender hung after egress close"
+    assert not srv_t.is_alive(), "player did not end"
     assert outcome.get("stopped") == "egress closed", outcome
 
 

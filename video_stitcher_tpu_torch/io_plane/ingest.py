@@ -86,6 +86,9 @@ class CaptureIngest:
         self._queues = [FrameQueue(max_queue) for _ in range(self.n)]
         self._server: Optional[socket.socket] = None
         self._running = False
+        #: the port the server listens on, read back after start():
+        #: cfg.capture_tcp_port, or the one the system chose for port 0
+        self.port: Optional[int] = None
         if backend == "auto":
             self._lib = native_mod.load()
         elif backend == "native":
@@ -105,11 +108,13 @@ class CaptureIngest:
             if rc != 0:
                 raise RuntimeError(f"stitchio_start_server failed: {rc}")
             self._native = self._lib
+            self.port = self._lib.stitchio_port()
             return
         self._server = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._server.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._server.bind(("", self.cfg.capture_tcp_port))
         self._server.listen(self.n)
+        self.port = self._server.getsockname()[1]
         self._running = True
         t = threading.Thread(target=self._accept_loop, daemon=True)
         t.start()
@@ -127,6 +132,12 @@ class CaptureIngest:
             return
         self._running = False
         if self._server:
+            # shutdown first: close() alone does not wake the accept
+            # thread blocked in accept(), which then outlives the server
+            try:
+                self._server.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
             try:
                 self._server.close()
             except OSError:

@@ -163,6 +163,8 @@ def _configure_stitchio(lib: ctypes.CDLL) -> None:
     lib.stitchio_queue_size.argtypes = [ctypes.c_int]
     lib.stitchio_queue_size.restype = ctypes.c_int
     lib.stitchio_clients.restype = ctypes.c_int
+    lib.stitchio_port.argtypes = []
+    lib.stitchio_port.restype = ctypes.c_int
     lib.stitchio_stop_server.restype = None
     lib.stitchio_nv12_to_rgb.argtypes = [
         ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,

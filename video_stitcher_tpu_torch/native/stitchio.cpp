@@ -185,6 +185,18 @@ class CaptureServer {
 
     int clientsConnected() { return clients_.load(); }
 
+    // The port the listener is bound to: the configured one, or the one
+    // the system chose when it was 0.
+    int boundPort() {
+        sockaddr_in addr{};
+        socklen_t len = sizeof(addr);
+        if (listen_fd_ < 0 ||
+            getsockname(listen_fd_, reinterpret_cast<sockaddr*>(&addr),
+                        &len) < 0)
+            return -1;
+        return ntohs(addr.sin_port);
+    }
+
     bool getStats(int cam, long out[5]) {
         if (cam < 0 || cam >= num_cams_) return false;
         out[0] = stats_[cam].frames_ok.load();
@@ -424,6 +436,10 @@ int stitchio_queue_size(int cam) {
 
 int stitchio_clients(void) {
     return g_server ? g_server->clientsConnected() : -1;
+}
+
+int stitchio_port(void) {
+    return g_server ? g_server->boundPort() : -1;
 }
 
 // out[5] = {frames_ok, resyncs, bytes_skipped, seq_gaps, queue_drops}

@@ -105,6 +105,12 @@ class Runner:
         self._latest_frames = None
         self._latest_lock = threading.Lock()
         self._stop = threading.Event()
+        #: set once run() has its source (with use_stream, the capture
+        #: server is listening: _ingest.port says where)
+        self.source_ready = threading.Event()
+        #: the threads run() started; each has ended or is ending once
+        #: run() returns (their joins are bounded)
+        self.threads: list = []
         self.timers = StageTimers(["acquire", "upload", "stitch", "output"])
         self.fps = FpsMeter(period=30)
         self.frames_done = 0
@@ -459,6 +465,7 @@ class Runner:
     def run(self) -> None:
         cfg = self.cfg
         source = self._make_source()
+        self.source_ready.set()
         try:
             frames = source.get_frames()
             if frames is None:
@@ -479,6 +486,7 @@ class Runner:
 
         if self._use_inline():
             recalib = threading.Thread(target=self._recalib_loop, daemon=True)
+            self.threads = [recalib]
             recalib.start()
             try:
                 self._run_inline(source)
@@ -498,6 +506,7 @@ class Runner:
         recalib = threading.Thread(target=self._recalib_loop, daemon=True)
         stager = threading.Thread(target=self._stage_loop, args=(source,),
                                   daemon=True)
+        self.threads = [consumer, recalib, stager]
         consumer.start()
         recalib.start()
         stager.start()
