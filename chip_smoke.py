@@ -23,11 +23,22 @@ that computes K2's function. Last, the prewarp path of the JAX package's
 BASELINE config 4 (6x3840x2160 -> 7680x3840, keep_aspect_ratio,
 add_black_bars, global warp): K1 on the f32 source resized to compose
 scale, held against its plain version and timed against its bound, and
-stitch_out from RGB and NV12. Then phase "runner": the live Runner
-(pipeline/runner.py) with the calibrated 6x1080p stitcher: (a) over the
-native TCP capture server (framed protocol, 6 loopback boards streaming
-NV12 sets) in the threaded and the inline pipeline, every output equal
-to stitch_out of the set sent for it; (b) the live re-solve thread with
+stitch_out from RGB and NV12. Then phase "graph", at the default cell
+and at config 4: stitch, stitch_nv12 and stitch_out replay one CUDA graph
+per key (pipeline/step_graph.py); each replay is held against the eager
+module functions at max abs 0 on the installed state, after a swap to
+perturbed maps, at three interpolate_states steps, and after the tap
+caches were cleared and the freed memory written over; no swap captures
+again; the eager and graphed stitch_out times, the CUDA API calls each
+call makes (one cudaGraphLaunch and no kernel launch), the card's busy
+share, a swap's cost, and each key's capture time and memory pool; then
+the Runner from memory in both modes, an eager stand-in against the
+graphed stitcher. Every Runner output of every phase is held against
+the eager step of its frame set (eager_out). Then phase "runner": the
+live Runner (pipeline/runner.py) with the calibrated 6x1080p stitcher:
+(a) over the native TCP capture server (framed protocol, 6 loopback
+boards streaming NV12 sets) in the threaded and the inline pipeline,
+every output equal to stitch_out of the set sent for it; (b) the live re-solve thread with
 the interpolation animation until two meshes install; (c) HEVC egress
 into a loopback player that counts the pictures; (d) BASELINE config 4
 from memory; (e) 20 Runner frames under torch.profiler (utils/trace) for
@@ -296,6 +307,33 @@ def check(cond: bool, what: str) -> None:
     log(f"  {'ok' if cond else 'FAILED'}: {what}")
     if not cond:
         FAILED.append(what)
+
+
+def eager_step(st, frames, out: bool = False):
+    """The unsharded step on st's installed state through the module
+    functions (stitch_pano, or blend_resize_pack of warp_bands at the
+    output size), with no program: what a graph replay is held
+    against."""
+    from video_stitcher_tpu_torch.pipeline.stitcher import (
+        blend_resize_pack, stitch_pano, warp_bands)
+    state, geom, plan = st._snapshot()
+    x = torch.as_tensor(frames, device=st.device)
+    if not out:
+        return stitch_pano(x, state, geom, plan)
+    return blend_resize_pack(warp_bands(x, state, geom, plan), state, geom,
+                             *st._out_size(geom))
+
+
+def eager_out(st, frames) -> np.ndarray:
+    """What stitch_out(frames) returns (black bars and all), computed
+    eagerly: the expected output of a Runner frame."""
+    return st.finalize_out(eager_step(st, frames, out=True))
+
+
+def captures(st) -> int:
+    """Captures st's programs have made: each ran the step once eagerly
+    first, one K1 launch."""
+    return sum(st.programs.captures.values())
 
 
 def edited_maps(maps: torch.Tensor, h: int, w: int):
@@ -677,8 +715,8 @@ def prewarp_phase(cfg4, dev, small4):
     out_nv12 = st.stitch_out(nv12)
     pano = st.stitch(frames)
     launches = remap_strips.launches
-    check(launches == 3, f"the prewarp path ran through K1 ({launches} "
-          f"launches in 3 calls)")
+    check(launches == 3 + captures(st), f"the prewarp path ran through K1 "
+          f"({launches} launches in 3 calls and {captures(st)} warm-ups)")
     oh, ow = st._out_size(geom4)
     y0 = cfg4.output_height // 2 - oh // 2
     bars = np.concatenate([out[:y0], out[y0 + oh:]])
@@ -775,7 +813,215 @@ def prewarp_phase(cfg4, dev, small4):
                "prewarp_stitch_out_host_ms": out_host_ms,
                "prewarp_stitch_out_nv12_host_ms": out_nv_host_ms,
                "prewarp_small_rig_max_abs": d_small}
-    return metrics, entry, st, nv12
+    return metrics, entry, st, nv12, frames
+
+
+# ---- phase "graph": the per-frame programs ------------------------------
+
+GRAPH_INTERP = (0.25, 0.5, 0.75)   # interpolate_states steps held
+GRAPH_FILL_BYTES = 8 << 30         # zeros written over freed memory
+
+
+def timed_pairs(fns: dict, reps=REPS) -> dict:
+    """Host-clock ms of each fn() between two device synchronisations,
+    the fns in turn within each of reps rounds: {name: (median, min,
+    max)}."""
+    times = {k: [] for k in fns}
+    for _ in range(reps):
+        for k, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: (statistics.median(v), min(v), max(v))
+            for k, v in times.items()}
+
+
+def api_calls(fn, reps=5) -> dict:
+    """The CUDA API calls that launch work (kernels, graphs, copies,
+    memsets) per call of fn, by name, from torch.profiler's host entries
+    over reps calls."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    launch = re.compile(r"^cu(da)?\w*(Launch|Memcpy|Memset)\w*$")
+    counts = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and launch.match(e.name):
+            counts[e.name] = counts.get(e.name, 0) + 1
+    return {k: v / reps for k, v in sorted(counts.items())}
+
+
+def kernel_launches(calls: dict) -> float:
+    """Kernel launches per call in api_calls' counts."""
+    return sum(v for k, v in calls.items()
+               if "Launch" in k and "Graph" not in k)
+
+
+def clear_tap_caches() -> None:
+    """Every cache the step's tap tables come from, emptied: a table no
+    program holds is freed."""
+    import importlib
+    ops = {m: importlib.import_module(f"video_stitcher_tpu_torch.ops.{m}")
+           for m in ("color", "pyramid", "resize")}
+    for fn in (ops["resize"].device_taps, ops["resize"]._interp_matrix,
+               ops["pyramid"]._down_matrix, ops["pyramid"]._up_matrix,
+               ops["color"]._nv12_scaled_mats):
+        fn.cache_clear()
+
+
+def graph_cell(name, st, frames, nv12, dev) -> dict:
+    """Phase "graph" at one cell: each key of stitch, stitch_nv12 and
+    stitch_out (frames on the card) against the eager module functions,
+    max abs 0, on the installed state, after a swap to perturbed maps,
+    at each interpolate_states step towards them, and after the tap
+    caches were cleared and the freed memory written over; no swap
+    captures again. Then the eager and graphed stitch_out times, the
+    API calls that launch work per call, the card's busy share, a swap's
+    cost, and each key's capture time and pool. Returns metrics."""
+    from video_stitcher_tpu_torch.ops.remap_strips import remap_strips
+    x_rgb = torch.as_tensor(frames, device=dev)
+    x_nv = torch.as_tensor(nv12, device=dev)
+    keys = {"stitch RGB": (st.stitch, x_rgb, False),
+            "stitch_nv12": (st.stitch_nv12, x_nv, False),
+            "stitch_out RGB": (st.stitch_out, x_rgb, True),
+            "stitch_out NV12": (st.stitch_out, x_nv, True)}
+    held = {}
+
+    def hold(label):
+        worst = 0
+        for fn, x, out in keys.values():
+            got = fn(x, device=True)
+            want = eager_step(st, x, out)
+            worst = max(worst, int((got.to(torch.int16)
+                                    - want.to(torch.int16)).abs().max()))
+        held[label] = worst
+        check(worst == 0, f"{name}: every key's graph against the eager "
+              f"step, {label}: max abs {worst}")
+
+    hold("the installed state")
+    caps = dict(st.programs.captures)
+    old, plan_old = st.state, st.plan
+    new = old._replace(fused_maps=torch.as_tensor(
+        perturbed_maps(old.fused_maps.cpu().numpy()), device=dev))
+    st.swap_state(new)
+    n_old, n_new = plan_old.n_active, st.plan.n_active
+    hold(f"perturbed maps ({n_old} -> {n_new} active tiles)")
+    for t in GRAPH_INTERP:
+        st.swap_state(st.interpolate_states(old, new, t))
+        hold(f"interpolate_states t={t} ({st.plan.n_active} active)")
+    st.swap_state(old)
+    hold("the state swapped back")
+    clear_tap_caches()
+    torch.cuda.empty_cache()
+    fill = min(GRAPH_FILL_BYTES, torch.cuda.mem_get_info(dev)[0] // 2)
+    filler = torch.zeros(fill, dtype=torch.uint8, device=dev)
+    hold(f"tap caches cleared, {fill} bytes of zeros allocated")
+    del filler
+    check(st.programs.captures == caps and set(caps.values()) == {1},
+          f"{name}: no swap captured again; captures per key {caps}")
+
+    times = {}
+    for label, x in (("RGB", x_rgb), ("NV12", x_nv)):
+        t = timed_pairs({
+            "eager": lambda: eager_step(st, x, True),
+            "graph": lambda: st.stitch_out(x, device=True)})
+        times[label] = t
+        log(f"  {name} stitch_out {label}, frames on the card, ms median "
+            f"(min-max) of {REPS} in turns: eager {t['eager'][0]:.4f} "
+            f"({t['eager'][1]:.4f}-{t['eager'][2]:.4f}), graph "
+            f"{t['graph'][0]:.4f} ({t['graph'][1]:.4f}-"
+            f"{t['graph'][2]:.4f})")
+    calls = {"eager stitch_out RGB": api_calls(
+        lambda: eager_step(st, x_rgb, True))}
+    for label, (fn, x, _) in keys.items():
+        calls[label] = api_calls(lambda: fn(x, device=True))
+    for label, c in calls.items():
+        log(f"  {name} API calls per {label} call: {c}")
+    graphed = [c for k, c in calls.items() if not k.startswith("eager")]
+    check(all(c.get("cudaGraphLaunch") == 1 and kernel_launches(c) == 0
+              for c in graphed),
+          f"{name}: stitch, stitch_nv12 and stitch_out each make one "
+          f"cudaGraphLaunch and no kernel launch per call")
+    check(kernel_launches(calls["eager stitch_out RGB"]) > 100,
+          f"{name}: the eager step launches "
+          f"{kernel_launches(calls['eager stitch_out RGB'])} kernels a call")
+    busy = {}
+    for label, fn in (("eager", lambda: eager_step(st, x_rgb, True)),
+                      ("graph", lambda: st.stitch_out(x_rgb,
+                                                      device=True))):
+        share, per_call, top = device_profile(fn)
+        busy[label] = {"share": share, "kernels_per_call": per_call}
+        log(f"  {name} stitch_out RGB loop under torch.profiler, {label}: "
+            f"card busy {share:.4f}, {per_call:.1f} kernels a call; top "
+            f"{[(k, round(ms, 4)) for k, ms, _ in top[:3]]}")
+    check(busy["graph"]["kernels_per_call"] > 100,
+          f"{name}: the profiler sees the replayed graph's kernels "
+          f"({busy['graph']['kernels_per_call']:.1f} a call)")
+    swap_ms = sync_ms(lambda: st.swap_state(old), reps=5)
+    before = remap_strips.launches
+    st.stitch_out(x_rgb, device=True)
+    k1_replay = remap_strips.launches - before
+    check(k1_replay == 1, f"{name}: a replay counts its captured K1 "
+          f"launch ({k1_replay})")
+    progs = {p.name: {"capture_s": p.capture_s, "pool_bytes": p.pool_bytes,
+                      "replays": p.replays, "k1_launches": p.k1_launches}
+             for p in st.programs.programs.values()}
+    for k, v in progs.items():
+        log(f"  {name} program {k}: capture {v['capture_s']:.4f} s "
+            f"(warm-up included), pool {v['pool_bytes']} bytes, "
+            f"{v['replays']} replays, K1 {v['k1_launches']} a replay")
+    log(f"  {name} swap_state with {len(progs)} programs: {swap_ms:.4f} "
+        f"ms (plan + copies into the buffers, between syncs)")
+    return {"max_abs": held, "stitch_out_ms": times, "api_calls": calls,
+            "busy": busy, "swap_ms": swap_ms, "programs": progs,
+            "active_tiles": [n_old, n_new]}
+
+
+def graph_phase(st, cfg, frames, nv12, st4, frames4, nv12_4, dev):
+    """Phase "graph" (graph_cell) at the default cell and at BASELINE
+    config 4, then the Runner from memory in both pipeline modes at the
+    default cell, eager (a stand-in whose stitch* run the module
+    functions) against graphed, every output equal to the eager
+    stitch_out of its set. Returns metrics."""
+    import os
+    import tempfile
+    from video_stitcher_tpu_torch import Stitcher
+    from video_stitcher_tpu_torch.ops.color import rgb_to_nv12
+    log("phase graph")
+    metrics = {"default": graph_cell("default", st, frames, nv12, dev),
+               "config4": graph_cell("config 4", st4, frames4, nv12_4,
+                                     dev)}
+    eager = Stitcher(cfg, device=dev)
+    eager._install(st.geom, st.state, st.aux)
+    eager._replay = lambda f, out=False: eager_step(eager, eager._frames(f),
+                                                    out)
+    rng = np.random.default_rng(SEED + 3)
+    sets = [rgb_to_nv12(torch.as_tensor(f, device=dev)).cpu().numpy()
+            for f in (frames, np.clip(frames.astype(np.int16) + rng.integers(
+                -6, 7, frames.shape), 0, 255).astype(np.uint8))]
+    expected = [eager_out(st, s) for s in sets]
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            for mode in ("threaded", "inline"):
+                for label, s in (("eager", eager), ("graph", st)):
+                    log(f"  Runner from memory, {mode}, {label}:")
+                    _, metrics[f"runner_{mode}_{label}"] = memory_runner(
+                        s, cfg, sets, expected, mode)
+        finally:
+            os.chdir(cwd)
+    check(not eager.programs.programs, "the eager stand-in built no program")
+    return metrics
 
 
 # ---- the live Runner ------------------------------------------------------
@@ -843,8 +1089,9 @@ class CheckSink:
 def drive_runner(r, st):
     """r.run() with K1's count from 0 and the stitcher's re-solves
     counted. Returns (K1 launches, the launches the Runner's own counts
-    give: frames stitched + the calib.jpg pano + one estimation warp per
-    re-solve)."""
+    give: frames stitched + the calib.jpg pano + the stitch_out and
+    stitch the Runner makes on its first set before its threads start +
+    one estimation warp per re-solve + one warm-up per capture)."""
     from video_stitcher_tpu_torch.ops.remap_strips import remap_strips
     solves = []
     solve = st.recalibrate_mesh
@@ -854,12 +1101,15 @@ def drive_runner(r, st):
         return solve(frames)
     st.recalibrate_mesh = counted
     remap_strips.launches = 0
+    caps = captures(st)
     try:
         r.run()
     finally:
         del st.recalibrate_mesh
     torch.cuda.synchronize()
-    return remap_strips.launches, r.frames_done + 1 + len(solves)
+    first = 1 if r.consume_device else 2
+    return remap_strips.launches, (r.frames_done + 1 + first + len(solves)
+                                   + captures(st) - caps)
 
 
 def runner_numbers(r) -> dict:
@@ -981,7 +1231,7 @@ def tcp_runner(st, cfg, sets, expected, mode):
     check(r._ingest._lib is not None,
           f"TCP {mode}: the native capture server served")
     check(launches == want, f"TCP {mode}: K1 launched {launches} times, "
-          f"frames + calib.jpg = {want}")
+          f"frames + calib.jpg + first set + warm-ups = {want}")
     nums.update(k1_launches=launches, ingest_drops=sum(
         s["drops"] for s in stats), max_abs=sink.max_abs)
     return launches, nums
@@ -1005,7 +1255,7 @@ def memory_runner(st, cfg, sets, expected, mode):
           f"memory {mode}: {sink.compared} of {r.frames_done} outputs equal "
           f"stitch_out of their set (max abs {sink.max_abs}), no stall")
     check(launches == want, f"memory {mode}: K1 launched {launches} times, "
-          f"frames + calib.jpg = {want}")
+          f"frames + calib.jpg + first set + warm-ups = {want}")
     nums.update(k1_launches=launches, max_abs=sink.max_abs)
     return launches, nums
 
@@ -1039,7 +1289,7 @@ def resolve_runner(st, cfg, sets):
     check(r.sync_stalls == 0 and r.stage_stalls == 0 and r.frames_done
           < RESOLVE_MAX_FRAMES, "live re-solve: ended cleanly, no stall")
     check(launches == want, f"live re-solve: K1 launched {launches} times, "
-          f"frames + calib.jpg + re-solves = {want}")
+          f"frames + calib.jpg + first set + re-solves + warm-ups = {want}")
     pano = st.stitch(sets[0])
     valid = st.state.valid_mask.cpu().numpy() > 0
     zeros = int((pano.max(-1)[valid] == 0).sum())
@@ -1148,7 +1398,7 @@ def runner_4k(st4, nv12_4):
     from video_stitcher_tpu_torch.pipeline.runner import Runner
     rcfg = dataclasses.replace(st4.cfg, pipeline_mode="threaded",
                                recalibrate=False)
-    sink = CheckSink([st4.stitch_out(nv12_4)], first=0, every=10)
+    sink = CheckSink([eager_out(st4, nv12_4)], first=0, every=10)
     r = Runner(rcfg, stitcher=st4, sink=sink,
                source=CycleSource([nv12_4], RUNNER_4K_FRAMES + 1),
                collect_latency=True)
@@ -1277,7 +1527,7 @@ def runner_phase(st, cfg, frames, frames2, st4, nv12_4):
                       ).astype(np.uint8)
     sets = [rgb_to_nv12(torch.as_tensor(f, device=dev)).cpu().numpy()
             for f in (frames, frames2, frames3)]
-    expected = [st.stitch_out(s) for s in sets]
+    expected = [eager_out(st, s) for s in sets]
     check(not np.array_equal(expected[0], expected[1]),
           "the sets sent give different outputs")
     launches, metrics = {}, {}
@@ -1901,7 +2151,7 @@ def live_phase(st, cfg, frames, frames2):
                       ).astype(np.uint8)
     sets = [rgb_to_nv12(torch.as_tensor(f, device=dev)).cpu().numpy()
             for f in (frames, frames2, frames3)]
-    expected = [st.stitch_out(s) for s in sets]
+    expected = [eager_out(st, s) for s in sets]
     launches, metrics = {}, {}
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2028,7 +2278,8 @@ def shard_phase(st, cfg, frames, frames2, dev):
           f"equal stitch_out of their set (max abs {sink.max_abs}), no stall")
     check(runner_launches == 2 * runner_sets,
           f"Runner on 2 shards: K1 launched {runner_launches} times, twice "
-          f"per stitched set ({runner_sets} sets with calib.jpg)")
+          f"per stitched set ({runner_sets} sets with calib.jpg and the "
+          f"Runner's two calls on its first set)")
     # each sharded step twice (pano, output), then the 2-shard stitcher:
     # stitch, stitch_out and the expected outputs, then the Runner
     want = 2 * sum(per_call.values()) + 2 * (2 + len(sets)) + runner_launches
@@ -2393,7 +2644,8 @@ def entries_phase(cfg, frames, dev):
     out_loaded = from_file.stitch_out(frames)
     launches = remap_strips.launches
     d_out = max_abs_u8(out_saved, out_loaded)
-    check(launches == 2 and from_file.device.type == "cuda" and d_out == 0,
+    check(launches == 2 + captures(saved) + captures(from_file)
+          and from_file.device.type == "cuda" and d_out == 0,
           f"stitch_out from the loaded checkpoint: max abs {d_out} from "
           f"the state it was saved from, K1 launches {launches}")
     log(f"  K1 on the entries path: {launches} launches, {k1_ms:.4f} ms on "
@@ -2506,9 +2758,10 @@ def run(cfg, dev, cfg4, small4) -> int:
     counts = []
 
     def counted(fn, *args, **kw):
-        before = remap_strips.launches
+        before, caps = remap_strips.launches, captures(st)
         out = fn(*args, **kw)
-        counts.append(remap_strips.launches - before)
+        counts.append(remap_strips.launches - before
+                      - (captures(st) - caps))
         return out
 
     t0 = time.perf_counter()
@@ -2527,11 +2780,15 @@ def run(cfg, dev, cfg4, small4) -> int:
     outs = [counted(st.stitch_out, f) for f in (frames, frames2)]
     batch = counted(st.stitch_batch, np.stack([frames, frames2]))
     main_launches = remap_strips.launches
+    main_caps = captures(st)
     log(f"  K1 launches on the main path: {main_launches} (calibrate "
-        f"{calib_launches}, per stitch* call {counts})")
+        f"{calib_launches}, per stitch* call {counts} besides the "
+        f"{main_caps} warm-ups before the captures of "
+        f"{sorted(st.programs.captures)})")
     check(all(c == 1 for c in counts),
-          "K1 launched exactly once per stitch* call")
-    check(main_launches == len(counts) + calib_launches > 0,
+          "K1 launched exactly once per stitch* call (a replay's K1 "
+          "counted as its launch), plus once per capture's warm-up")
+    check(main_launches == len(counts) + main_caps + calib_launches > 0,
           "the main path ran through K1")
 
     # ---- what came out ------------------------------------------------
@@ -2698,10 +2955,19 @@ def run(cfg, dev, cfg4, small4) -> int:
     int16_launches, int16_metrics = int16_phase(st, frames, scene, valid,
                                                 dev)
     k2_entry, k2_metrics = k2_phase(st, frames, scene, valid, dev)
-    pw_metrics, pw_entry, st4, nv12_4 = prewarp_phase(cfg4, dev, small4)
+    pw_metrics, pw_entry, st4, nv12_4, frames4 = prewarp_phase(cfg4, dev,
+                                                               small4)
+    graph_metrics = graph_phase(st, cfg, frames, nv12, st4, frames4, nv12_4,
+                                dev)
+    del frames4
     runner_launches, runner_metrics = runner_phase(st, cfg, frames, frames2,
                                                    st4, nv12_4)
     live_launches, live_metrics = live_phase(st, cfg, frames, frames2)
+    for name, s in (("default", st), ("config 4", st4)):
+        caps = s.programs.captures
+        log(f"  {name} captures per key after the Runner phases: {caps}")
+        check(set(caps.values()) == {1}, f"{name}: each key captured once "
+              f"through every Runner phase, swaps and re-solves included")
     log(json.dumps({"metrics": {
         "card": card, "calibrate_s": calib_s,
         "stitch_out_ms": stitch_out_ms,
@@ -2715,7 +2981,8 @@ def run(cfg, dev, cfg4, small4) -> int:
         **local_metrics, **resolve_metrics, **k2_metrics, **pw_metrics,
         "runner": runner_metrics, "shard": shard_metrics,
         "int16": int16_metrics, "helpers": helper_metrics,
-        "entries": entry_metrics, "live": live_metrics}}))
+        "entries": entry_metrics, "live": live_metrics,
+        "graph": graph_metrics}}))
 
     log(json.dumps({"kernels": [{
         "name": "K1 remap_gain", "route": "cuda", "source": K1_SOURCE,

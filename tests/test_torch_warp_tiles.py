@@ -127,10 +127,14 @@ def _tiles_of(plan, out):
 def _walk(plan, want):
     """The kernels' walk of the plan, given what the plain version
     computes for each active tile: the empty tiles' zeros, written
-    without reading anything, and the active tiles' pixels. Camera n
-    walks the tiles of map n % n_maps."""
+    without reading anything, and the active tiles' pixels. The k-th tile
+    of the order is active when k < count[0], the count the kernels read
+    from the plan's tensor. Camera n walks the tiles of map n % n_maps."""
     n_maps = plan.tiles[0]
-    empty = ~plan.active
+    n_active = int(plan.count[0])
+    empty = torch.ones(plan.order.numel(), dtype=torch.bool)
+    empty[plan.order[:n_active].long()] = False
+    empty = empty.reshape(plan.tiles)
     got = _tiles_of(plan, want).clone()
     for n in range(want.shape[0]):
         got[n].permute(1, 3, 0, 2, 4)[empty[n % n_maps]] = 0.0
@@ -321,6 +325,31 @@ def test_a_plan_for_other_maps_is_refused(rig):
         plan.check(3, 96, 200, h, w + 1, torch.device("cpu"))
     with pytest.raises(ValueError, match="tile plan on"):
         plan.check(3, 96, 200, h, w, torch.device("meta"))
+    with pytest.raises(ValueError, match="count"):
+        plan._replace(count=plan.count.long()).check(
+            3, 96, 200, h, w, torch.device("cpu"))
+
+
+def test_walk_follows_the_plan_copied_into_a_plans_tensors(rig):
+    """A plan's tensors written over with another plan of the same maps'
+    shape walk as that plan (what a captured K1 launch reads after a
+    swap): the active count comes from the tensor."""
+    h, w = RING["input_height"], RING["input_width"]
+    fused = rig["st"].state.fused_maps
+    edited = _edited(fused, h, w)
+    a, b = plan_remap(fused, h, w), plan_remap(edited, h, w)
+    assert a.n_active != b.n_active
+    held = a._replace(order=a.order.clone(), count=a.count.clone())
+    held.order.copy_(b.order)
+    held.count.copy_(b.count)
+    rng = np.random.default_rng(13)
+    src = torch.from_numpy(rng.integers(1, 256, (6, 3, h, w)).astype(
+        np.uint8))
+    gains = torch.from_numpy(rng.uniform(0.8, 1.25, 6).astype(np.float32))
+    want = remap_strips_plain(src, edited, gains)
+    assert held.n_active == b.n_active
+    assert torch.equal(_walk(held, want), want)
+    assert not torch.equal(_walk(a, want), want)
 
 
 @pytest.mark.parametrize("case", ["contiguous", "aligned", "channels",

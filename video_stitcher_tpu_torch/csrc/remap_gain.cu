@@ -79,15 +79,15 @@ struct RemapGain {
 
 template <typename T>
 int launch(const void* src, const void* maps, const void* gains, void* out,
-           const void* order, int n_active, int n, int n_maps, int channels,
-           int h, int w, int bh, int bw, void* stream) {
+           const void* order, const void* count, int n, int n_maps,
+           int channels, int h, int w, int bh, int bw, void* stream) {
   if (channels != warp_tiles::kChannels || n_maps <= 0 || n % n_maps)
     return static_cast<int>(cudaErrorInvalidValue);
   const RemapGain<T> op{static_cast<const T*>(src), h, w,
                         static_cast<const float*>(gains)};
   warp_tiles::Plan p;
   p.order = static_cast<const int*>(order);
-  p.n_active = n_active;
+  p.count = static_cast<const int*>(count);
   p.n_maps = n_maps;
   p.tiles_x = (bw + warp_tiles::kTileW - 1) / warp_tiles::kTileW;
   p.tiles_y = (bh + warp_tiles::kTileH - 1) / warp_tiles::kTileH;
@@ -103,21 +103,24 @@ int launch(const void* src, const void* maps, const void* gains, void* out,
 // src: [n, channels, h, w] u8 or f32; maps: f32 [n_maps, 2, bh, bw];
 // gains: f32 [n]; out: f32 [n, channels, bh, bw]; order: int32
 // [n_maps * tiles_y * tiles_x], the tile plan of the maps
-// (ops/warp_tiles.py), its first n_active tiles active. All contiguous, on
-// the current device, maps 16-byte aligned; channels 3, bw a multiple
-// of 4. Returns the cudaError_t of the launch (0 = success).
+// (ops/warp_tiles.py); count: int32 [1], how many of order are active,
+// read by the kernel from device memory. All contiguous, on the current
+// device, maps 16-byte aligned; channels 3, bw a multiple of 4. Returns
+// the cudaError_t of the launch (0 = success).
 extern "C" int remap_gain_u8(const void* src, const void* maps,
                              const void* gains, void* out, const void* order,
-                             int n_active, int n, int n_maps, int channels,
-                             int h, int w, int bh, int bw, void* stream) {
-  return launch<uint8_t>(src, maps, gains, out, order, n_active, n, n_maps,
+                             const void* count, int n, int n_maps,
+                             int channels, int h, int w, int bh, int bw,
+                             void* stream) {
+  return launch<uint8_t>(src, maps, gains, out, order, count, n, n_maps,
                          channels, h, w, bh, bw, stream);
 }
 
 extern "C" int remap_gain_f32(const void* src, const void* maps,
                               const void* gains, void* out, const void* order,
-                              int n_active, int n, int n_maps, int channels,
-                              int h, int w, int bh, int bw, void* stream) {
-  return launch<float>(src, maps, gains, out, order, n_active, n, n_maps,
+                              const void* count, int n, int n_maps,
+                              int channels, int h, int w, int bh, int bw,
+                              void* stream) {
+  return launch<float>(src, maps, gains, out, order, count, n, n_maps,
                        channels, h, w, bh, bw, stream);
 }

@@ -97,12 +97,13 @@ struct PassV {
 // i1: bf16 [n, channels, hp, wp]; vmaps: f32 [n, 2, bh, bw]; out: f32
 // [n, channels, bh, bw]; wp = bw + xpad + right pad; chunk_w the width of
 // the TPU kernel's column chunks (32); order: int32 [n * tiles_y *
-// tiles_x], the tile plan of the vmaps (ops/warp_tiles.py), its first
-// n_active tiles active. All contiguous, on the current device, vmaps
+// tiles_x], the tile plan of the vmaps (ops/warp_tiles.py); count: int32
+// [1], how many of order are active, read by the kernel from device
+// memory. All contiguous, on the current device, vmaps
 // 16-byte aligned; channels 3, bw a multiple of 4. Returns the
 // cudaError_t of the launch (0 = success).
 extern "C" int remap_separable_v(const void* i1, const void* vmaps, void* out,
-                                 const void* order, int n_active, int n,
+                                 const void* order, const void* count, int n,
                                  int channels, int hp, int wp, int bh, int bw,
                                  int xpad, int chunk_w, void* stream) {
   if (channels != warp_tiles::kChannels || chunk_w != kChunkW)
@@ -110,7 +111,7 @@ extern "C" int remap_separable_v(const void* i1, const void* vmaps, void* out,
   const PassV op{static_cast<const __nv_bfloat16*>(i1), hp, wp, xpad};
   warp_tiles::Plan p;
   p.order = static_cast<const int*>(order);
-  p.n_active = n_active;
+  p.count = static_cast<const int*>(count);
   p.n_maps = n;
   p.tiles_x = (bw + warp_tiles::kTileW - 1) / warp_tiles::kTileW;
   p.tiles_y = (bh + warp_tiles::kTileH - 1) / warp_tiles::kTileH;

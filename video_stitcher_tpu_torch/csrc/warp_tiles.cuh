@@ -55,7 +55,10 @@ static_assert(kTileW % kVec == 0 && kMapBytes % 16 == 0,
 
 struct Plan {
   const int* order;    // [n_maps * tiles_y * tiles_x]: flat tile ids
-  int n_active;        // the first n_active of order are active
+  // [1], in device memory: the first count[0] of order are active. The
+  // kernel reads it there, so a CUDA graph that captured the launch
+  // walks whatever plan was last copied into its buffers.
+  const int* count;
   int n_maps, tiles_x, tiles_y;
   int n_tiles;         // n_maps * tiles_y * tiles_x
   int n_items;         // n_tiles * (cameras / n_maps)
@@ -121,7 +124,8 @@ struct Tile {
   bool active;
 };
 
-__device__ __forceinline__ Tile tile_at(const Plan& p, int item) {
+__device__ __forceinline__ Tile tile_at(const Plan& p, int n_active,
+                                        int item) {
   const int rep = item / p.n_tiles;
   const int k = item - rep * p.n_tiles;
   const int id = __ldg(p.order + k);
@@ -134,14 +138,15 @@ __device__ __forceinline__ Tile tile_at(const Plan& p, int item) {
   tile.m = m;
   tile.y0 = ty * kTileH;
   tile.x0 = (t - ty * p.tiles_x) * kTileW;
-  tile.active = k < p.n_active;
+  tile.active = k < n_active;
   return tile;
 }
 
 // Warp 0: start the copies of an active `item`'s maps into a stage.
-__device__ inline void issue(const Plan& p, const Band& b, int item,
-                             float* smaps, uint64_t* bar) {
-  const Tile t = tile_at(p, item);
+__device__ inline void fetch_maps(const Plan& p, int n_active,
+                                  const Band& b, int item, float* smaps,
+                                  uint64_t* bar) {
+  const Tile t = tile_at(p, n_active, item);
   if (!t.active) return;
   const int lane = threadIdx.x;
   const int rows = min(kTileH, b.bh - t.y0);
@@ -204,21 +209,25 @@ tiles_kernel(const Op op, const Plan p, const Band b) {
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
+  // the active count, clamped so that a bad one cannot index out of order
+  const int n_active = min(max(__ldg(p.count), 0), p.n_tiles);
 
   const int lx = threadIdx.x % kLanesX;
   const int ly = threadIdx.x / kLanesX;
   const int64_t plane = static_cast<int64_t>(b.bh) * b.bw;
   uint32_t parity = 0;     // bit s: the phase of stage s to wait for
   int item = blockIdx.x;
-  if (item < p.n_items && threadIdx.x < 32) issue(p, b, item, smaps, bars);
+  if (item < p.n_items && threadIdx.x < 32)
+    fetch_maps(p, n_active, b, item, smaps, bars);
   for (int k = 0; item < p.n_items; ++k, item += gridDim.x) {
     const int s = k % kStages;
     const int next = item + gridDim.x;
     if (next < p.n_items && threadIdx.x < 32) {
       const int ns = (k + 1) % kStages;
-      issue(p, b, next, smaps + ns * (kMapBytes / 4), bars + ns);
+      fetch_maps(p, n_active, b, next, smaps + ns * (kMapBytes / 4),
+                 bars + ns);
     }
-    const Tile t = tile_at(p, item);
+    const Tile t = tile_at(p, n_active, item);
     const int x = t.x0 + kVec * lx;
     const int y = t.y0 + ly;
     const bool inside = x < b.bw && y < b.bh;
@@ -262,7 +271,7 @@ tiles_kernel(const Op op, const Plan p, const Band b) {
 // on the current device. Returns a cudaError_t (0 = success).
 template <class Op>
 int launch(const Op& op, const Plan& p, const Band& b, void* stream) {
-  if (b.bw % kVec != 0 || p.n_active < 0 || p.n_active > p.n_tiles)
+  if (b.bw % kVec != 0 || p.order == nullptr || p.count == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (p.n_items == 0) return 0;
   static int slots[kMaxDevices] = {0};

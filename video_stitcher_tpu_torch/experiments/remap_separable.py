@@ -311,7 +311,7 @@ def _lib_fn():
     from video_stitcher_tpu_torch import _build
     fn = _build.load("remap_separable").remap_separable_v
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -333,8 +333,8 @@ def pass_v(i1: torch.Tensor, vmaps: torch.Tensor,
     if plan is None:
         plan = plan_pass_v(vmaps, hp, wp)
     plan.check(n, bh, bw, hp, wp, vmaps.device)
-    check_launchable("K2", vmaps, {"i1": i1, "plan order": plan.order}, ch,
-                     bw)
+    check_launchable("K2", vmaps, {"i1": i1, "plan order": plan.order,
+                                   "plan count": plan.count}, ch, bw)
     out = torch.empty((n, ch, bh, bw), dtype=torch.float32, device=i1.device)
     if out.numel() == 0:
         return out
@@ -342,8 +342,8 @@ def pass_v(i1: torch.Tensor, vmaps: torch.Tensor,
         fn = _lib_fn()
         stream = torch.cuda.current_stream(i1.device).cuda_stream
         err = fn(i1.data_ptr(), vmaps.data_ptr(), out.data_ptr(),
-                 plan.order.data_ptr(), plan.n_active, n, ch, hp, wp, bh, bw,
-                 XPAD, CHUNK_W, stream)
+                 plan.order.data_ptr(), plan.count.data_ptr(), n, ch, hp, wp,
+                 bh, bw, XPAD, CHUNK_W, stream)
     if err != 0:
         raise RuntimeError(f"K2 remap_separable launch failed: cudaError "
                            f"{err}")

@@ -82,7 +82,7 @@ def _lib_fn(dtype):
     from video_stitcher_tpu_torch import _build
     fn = getattr(_build.load("remap_gain"), _SYMBOLS[dtype])
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -91,7 +91,10 @@ def _lib_fn(dtype):
 def remap_strips(src, maps, gains, plan: TilePlan | None = None):
     """K1 (see the module docstring): `plan` is ``plan_remap`` of these
     maps and this source size, built here when None. Counts its CUDA
-    launches in ``remap_strips.launches``."""
+    launches in ``remap_strips.launches``; a launch recorded into a CUDA
+    graph capture counts in ``remap_strips.captured`` instead (it runs
+    when the graph is replayed, and ``pipeline/step_graph.py`` counts it
+    then)."""
     _check(src, maps, gains)
     if src.device.type == "cpu":
         return remap_strips_plain(src, maps, gains)
@@ -103,7 +106,8 @@ def remap_strips(src, maps, gains, plan: TilePlan | None = None):
         plan = plan_remap(maps, h, w)
     plan.check(n_maps, bh, bw, h, w, maps.device)
     check_launchable("K1", maps, {"src": src, "gains": gains,
-                                  "plan order": plan.order}, c, bw)
+                                  "plan order": plan.order,
+                                  "plan count": plan.count}, c, bw)
     out = torch.empty((n, c, bh, bw), dtype=torch.float32, device=src.device)
     if out.numel() == 0:
         return out
@@ -111,12 +115,16 @@ def remap_strips(src, maps, gains, plan: TilePlan | None = None):
         fn = _lib_fn(src.dtype)
         stream = torch.cuda.current_stream(src.device).cuda_stream
         err = fn(src.data_ptr(), maps.data_ptr(), gains.data_ptr(),
-                 out.data_ptr(), plan.order.data_ptr(), plan.n_active, n,
-                 n_maps, c, h, w, bh, bw, stream)
+                 out.data_ptr(), plan.order.data_ptr(), plan.count.data_ptr(),
+                 n, n_maps, c, h, w, bh, bw, stream)
     if err != 0:
         raise RuntimeError(f"K1 remap_gain launch failed: cudaError {err}")
-    remap_strips.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        remap_strips.captured += 1
+    else:
+        remap_strips.launches += 1
     return out
 
 
 remap_strips.launches = 0
+remap_strips.captured = 0

@@ -11,8 +11,9 @@ spend almost all of its work on structural zeros).
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Callable, Tuple
+from typing import Callable, List, Tuple
 
 import numpy as np
 import torch
@@ -55,11 +56,42 @@ def _dense_taps(m: np.ndarray, device: torch.device):
 
 
 @functools.lru_cache(maxsize=256)
+def _cached_taps(make_matrix: Callable[..., np.ndarray], args: tuple,
+                 device: torch.device):
+    return _dense_taps(make_matrix(*args), device)
+
+
+#: the lists registered by keeping_taps
+_KEEPERS: List[list] = []
+
+
 def device_taps(make_matrix: Callable[..., np.ndarray], args: tuple,
                 device: torch.device):
     """_dense_taps(make_matrix(*args), device), cached so the per-frame
-    path uploads no index arrays."""
-    return _dense_taps(make_matrix(*args), device)
+    path uploads no index arrays. Each table handed out is also appended
+    to every list registered by keeping_taps."""
+    taps = _cached_taps(make_matrix, args, device)
+    for keep in _KEEPERS:
+        keep.append(taps)
+    return taps
+
+
+device_taps.cache_clear = _cached_taps.cache_clear
+device_taps.cache_info = _cached_taps.cache_info
+
+
+@contextlib.contextmanager
+def keeping_taps(keep: list):
+    """Append to `keep` every table device_taps hands out in this block,
+    on any thread. A captured CUDA graph reads its tables at their
+    addresses, so its owner keeps them (pipeline/step_graph.py): a table
+    the cache evicts is freed, and its memory may hold anything by the
+    next replay."""
+    _KEEPERS.append(keep)
+    try:
+        yield keep
+    finally:
+        _KEEPERS.remove(keep)
 
 
 def apply_taps(x: torch.Tensor, taps, axis: int) -> torch.Tensor:

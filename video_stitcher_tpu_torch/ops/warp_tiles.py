@@ -14,7 +14,10 @@ checkpoint.
 The kernels (``csrc/warp_tiles.cuh``) walk the plan with persistent
 blocks: an empty tile gets its zeros written and nothing read; an active
 tile's maps come into a shared-memory ring by bulk copy while the
-previous tile computes.
+previous tile computes. They read the count of active tiles from the
+plan's one-element tensor, not from an argument, so a launch captured in
+a CUDA graph (``pipeline/step_graph.py``) walks whichever plan of the same
+geometry was last copied into the tensors it reads.
 """
 
 from __future__ import annotations
@@ -32,11 +35,17 @@ class TilePlan(NamedTuple):
     #: tile column), the active tiles first, in that order, then the
     #: empty ones
     order: torch.Tensor
-    n_active: int
+    #: int32 [1] on the order's device: how many of `order` are active
+    count: torch.Tensor
     #: (n_maps, tiles_y, tiles_x)
     tiles: Tuple[int, int, int]
     src_h: int
     src_w: int
+
+    @property
+    def n_active(self) -> int:
+        """count[0] on the host (a device sync on the card)."""
+        return int(self.count[0])
 
     @property
     def active(self) -> torch.Tensor:
@@ -62,16 +71,20 @@ class TilePlan(NamedTuple):
                 f"tile plan {tuple(self.tiles)} over {self.src_h}x"
                 f"{self.src_w} does not fit maps [{n_maps}, 2, {bh}, {bw}] "
                 f"over {src_h}x{src_w}")
-        if self.order.device != device:
+        if self.order.device != device or self.count.device != device:
             raise ValueError(f"tile plan on {self.order.device}, maps on "
                              f"{device}")
+        if self.count.shape != (1,) or self.count.dtype != torch.int32:
+            raise ValueError(f"tile plan count {self.count.dtype} "
+                             f"{tuple(self.count.shape)} is not int32 [1]")
 
 
 def plan_tiles(x0: torch.Tensor, y0: torch.Tensor, src_h: int,
                src_w: int) -> TilePlan:
     """x0, y0: [n_maps, bh, bw], the top-left tap of each band pixel's 2x2
     bilinear footprint in a src_h x src_w source (taps at x0..x0+1,
-    y0..y0+1; a tap outside the source reads nothing)."""
+    y0..y0+1; a tap outside the source reads nothing). Launches work on
+    the maps' device and never waits for it."""
     n, bh, bw = x0.shape
     ty, tx = -(-bh // TILE_H), -(-bw // TILE_W)
     live = (x0 >= -1) & (x0 < src_w) & (y0 >= -1) & (y0 < src_h)
@@ -79,9 +92,12 @@ def plan_tiles(x0: torch.Tensor, y0: torch.Tensor, src_h: int,
                                           0, ty * TILE_H - bh))
     active = live.reshape(n, ty, TILE_H, tx, TILE_W).any(4).any(2)
     flat = active.reshape(-1)
-    ids = torch.arange(flat.numel(), device=x0.device, dtype=torch.int32)
-    order = torch.cat([ids[flat], ids[~flat]]).contiguous()
-    return TilePlan(order=order, n_active=int(flat.sum()), tiles=(n, ty, tx),
+    # the active ids, then the empty ones, each ascending: a stable sort
+    # on the flag, which (unlike a boolean index) needs no device sync
+    order = torch.argsort((~flat).to(torch.uint8), stable=True).to(
+        torch.int32)
+    count = flat.sum(dtype=torch.int32).reshape(1)
+    return TilePlan(order=order, count=count, tiles=(n, ty, tx),
                     src_h=src_h, src_w=src_w)
 
 

@@ -477,6 +477,13 @@ class Runner:
                          (time.perf_counter() - t0) * 1e3)
             else:
                 log.info("using pre-calibrated stitcher")
+            # build the programs of the keys the Runner uses (their CUDA
+            # graphs on the card) now, while none of its threads launches
+            # work: stitch_out for every frame, stitch for the one
+            # calib.jpg. The outputs are not used.
+            self.stitcher.stitch_out(frames, device=True)
+            if not self.consume_device:
+                self.stitcher.stitch(frames, device=True)
         except BaseException:
             # pre-loop failure: the ingest server/threads must not be
             # left running (a retry in-process would find the capture

@@ -14,11 +14,14 @@ compose scale (planar f32, which K1 takes as it is). With the CPW mesh on
 solve, and ``recalibrate_mesh`` re-solves it live. The live Runner hands
 frame sets over with ``stage_frames`` (pinned host buffers uploaded on a
 side CUDA stream) and takes output frames back with ``finalize_out``
-(a pinned download). With ``cfg.camera_shards`` > 1 the cameras are
-sharded over devices (``parallel/shard.py``): each shard warps and
-weights its cameras on its device, and the levels are summed on the
-first. ``stitch_int16`` is the reference's integer blend arithmetic, a
-parity path.
+(a pinned download). ``stitch``, ``stitch_nv12`` and ``stitch_out`` run
+the step through one program per key (``pipeline/step_graph.py``: a CUDA
+graph on the card, captured at the key's first use and replayed once per
+frame set; each install copies the new state into its buffers). With
+``cfg.camera_shards`` > 1 the cameras are sharded over devices
+(``parallel/shard.py``): each shard warps and weights its cameras on its
+device, and the levels are summed on the first. ``stitch_int16`` is the
+reference's integer blend arithmetic, a parity path.
 """
 
 from __future__ import annotations
@@ -55,6 +58,7 @@ from video_stitcher_tpu_torch.parallel.shard import (
     ShardedFrames, ShardedState, build_sharded_step, camera_blocks,
     shard_state,
 )
+from video_stitcher_tpu_torch.pipeline.step_graph import StepPrograms
 from video_stitcher_tpu_torch.utils.device import resolve_device
 
 
@@ -219,7 +223,10 @@ class Stitcher:
     them under it, so a swap from another thread never mixes two states,
     or a state and another state's plan or shards, in one call. A mesh
     re-solve (recalibrate_mesh) and every swap_state install the same
-    way, so the shards follow every state installed.
+    way, so the shards follow every state installed. Unsharded, stitch,
+    stitch_nv12 and stitch_out replay the program of their key
+    (`programs`), and every install copies the state and its plan into
+    the programs' buffers under the same lock.
     """
 
     def __init__(self, cfg: StitcherConfig, device=None):
@@ -240,6 +247,8 @@ class Stitcher:
         self._shard_devices = resolve_shard_devices(cfg.camera_shards,
                                                     self.device)
         self._sharded: Optional[ShardedState] = None
+        #: the per-frame programs of the installed geometry
+        self.programs = StepPrograms(self.device)
 
     # --- calibration -------------------------------------------------
     def calibrate(self, frames: np.ndarray) -> None:
@@ -264,6 +273,7 @@ class Stitcher:
         with self._swap_lock:
             self.geom, self.state, self.plan = geom, state, plan
             self._sharded = sharded
+            self.programs.install(geom, state, plan)
             if aux is not None:
                 self.aux = aux
                 self.state_global = state
@@ -385,17 +395,47 @@ class Stitcher:
             stager = self._stagers[k] = _PinnedStager(device, slots)
         return stager.upload(frames)
 
+    def _replay(self, frames, out: bool = False) -> torch.Tensor:
+        """The unsharded step on `frames` through its program
+        (pipeline/step_graph.py): stitch_pano, or with `out`
+        blend_resize_pack ∘ warp_bands at the output size, for the
+        geometry installed. The frames are made ready on this thread's
+        stream first; host frames are copied straight into the program's
+        buffer."""
+        if isinstance(frames, ShardedFrames) or getattr(
+                frames, "_staged_event", None) is not None:
+            x = self._frames(frames)
+        elif isinstance(frames, torch.Tensor):
+            x = frames
+        else:
+            x = torch.as_tensor(np.asarray(frames))
+        with self._swap_lock:
+            geom = self.geom
+            if geom is None:
+                raise RuntimeError("no calibration installed")
+            if not out:
+                return self.programs.run(
+                    ("stitch_pano",),
+                    lambda f, s, p: stitch_pano(f, s, geom, p), x)
+            oh, ow = self._out_size(geom)
+            return self.programs.run(
+                ("stitch_out", oh, ow),
+                lambda f, s, p: blend_resize_pack(
+                    warp_bands(f, s, geom, p), s, geom, oh, ow), x)
+
     def stitch(self, frames, device: bool = False):
         """frames u8 [N, H, W, 3] (or NV12 [N, H*3/2, W]) -> u8 pano
         [pano_h, pano_w, 3]. device=True returns the tensor on the device
-        (no host transfer). Sharded, the sharded step runs and the pano
-        lies on the first shard's device."""
-        state, geom, plan, sharded = self._snapshot_sharded()
+        (no host transfer), which no later call writes. Unsharded, the
+        step is the program of its key (a CUDA graph on the card); sharded,
+        the sharded step runs and the pano lies on the first shard's
+        device."""
+        _, geom, _, sharded = self._snapshot_sharded()
         if sharded is not None:
             pano = build_sharded_step(geom, self._shard_devices)(
                 self._shard_frames(frames, sharded), sharded)
         else:
-            pano = stitch_pano(self._frames(frames), state, geom, plan)
+            pano = self._replay(frames)
         return pano if device else pano.cpu().numpy()
 
     def stitch_nv12(self, nv12, device: bool = False):
@@ -437,16 +477,16 @@ class Stitcher:
         of an intermediate u8 one. device=True returns the device tensor
         before black-bar compositing; otherwise equivalent to
         output(stitch(frames)) up to that rounding. Sharded, the sharded
-        step resizes its f32 panorama the same way."""
-        state, geom, plan, sharded = self._snapshot_sharded()
-        oh, ow = self._out_size(geom)
+        step resizes its f32 panorama the same way. Unsharded, the step
+        (warp + blend + resize + pack) is the program of its key: on the
+        card one graph launch."""
+        _, geom, _, sharded = self._snapshot_sharded()
         if sharded is not None:
-            frame = build_sharded_step(geom, self._shard_devices, (oh, ow))(
+            frame = build_sharded_step(geom, self._shard_devices,
+                                       self._out_size(geom))(
                 self._shard_frames(frames, sharded), sharded)
         else:
-            frame = blend_resize_pack(warp_bands(self._frames(frames), state,
-                                                 geom, plan), state, geom,
-                                      oh, ow)
+            frame = self._replay(frames, out=True)
         return frame if device else self.finalize_out(frame)
 
     def stitch_int16(self, frames, state: Optional[CalibState] = None,
