@@ -34,7 +34,20 @@ call makes (one cudaGraphLaunch and no kernel launch), the card's busy
 share, a swap's cost, and each key's capture time and memory pool; then
 the Runner from memory in both modes, an eager stand-in against the
 graphed stitcher. Every Runner output of every phase is held against
-the eager step of its frame set (eager_out). Then phase "runner": the
+the eager step of its frame set (eager_out). Then phase "programs", at
+the default cell: the programs of the JAX package's other jits
+(stitch_batch at B = 2 and 4, stitch_int16 on the live state and on
+state_global, output, the sharded step on [card] * k for k = 1-4) held
+against their eager module functions at max abs 0 through the same
+swaps, interpolation steps and cleared caches, with no new capture;
+their eager and graphed ms, API calls (one cudaGraphLaunch a call, k' +
+1 for the sharded step with k' non-empty shards, no kernel launch),
+capture seconds and pools; the mesh re-solve's programs against its
+eager stages with the same draws (displacement, installed maps and
+weights at max abs 0, both recalib_chunked settings, update_masks on),
+one cudaGraphLaunch per unit of a re-solve, and its eager and graphed
+seconds. No capture may run on a Runner thread in the Runner phases
+that follow. Then phase "runner": the
 live Runner (pipeline/runner.py) with the calibrated 6x1080p stitcher:
 (a) over the native TCP capture server (framed protocol, 6 loopback
 boards streaming NV12 sets) in the threaded and the inline pipeline,
@@ -104,6 +117,7 @@ import sys
 import threading
 import time
 import traceback
+import types
 
 import numpy as np
 import torch
@@ -330,10 +344,32 @@ def eager_out(st, frames) -> np.ndarray:
     return st.finalize_out(eager_step(st, frames, out=True))
 
 
+def program_sets(st) -> dict:
+    """Every program set of a stitcher (pipeline/step_graph.ProgramSet):
+    its unsharded entries', its sharded step's shards' and reduction's,
+    and its mesh re-solve's."""
+    sets = {"entries": st.programs}
+    if st.shard_programs is not None:
+        for i, ps in enumerate(st.shard_programs.shard_sets):
+            sets[f"shard {i}"] = ps
+        sets["reduction"] = st.shard_programs.reduce_set
+    if st._mesh_pipe is not None:
+        sets["re-solve"] = st._mesh_pipe.programs
+    return sets
+
+
 def captures(st) -> int:
-    """Captures st's programs have made: each ran the step once eagerly
-    first, one K1 launch."""
-    return sum(st.programs.captures.values())
+    """K1 launches the warm-ups of st's captured programs made: a capture
+    runs its function once eagerly first, with the K1 launches its graph
+    then replays."""
+    return sum(p.k1_launches for ps in program_sets(st).values()
+               for p in ps.programs.values())
+
+
+def all_captures(st) -> dict:
+    """Captures per program over all of st's program sets."""
+    return {f"{name}: {k}": v for name, ps in program_sets(st).items()
+            for k, v in ps.captures.items()}
 
 
 def edited_maps(maps: torch.Tensor, h: int, w: int):
@@ -581,7 +617,7 @@ def local_phase(st, frames, scene, valid, p_rgb, calib_s, mesh_s, dev):
                          glob_plan).cpu().numpy()
     p_glob = scene_psnr(pano_g, scene, valid)
     src = _warp_source(frames_dev, geom)
-    got = pipe.warp(frames_dev)
+    got = pipe.warp(frames_dev)[0]      # the estimation warp's program
     want = remap_strips_plain(src, pipe.global_maps, pipe.ones)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
@@ -872,7 +908,9 @@ def clear_tap_caches() -> None:
     import importlib
     ops = {m: importlib.import_module(f"video_stitcher_tpu_torch.ops.{m}")
            for m in ("color", "pyramid", "resize")}
+    from video_stitcher_tpu_torch.ops import pyramid_int
     for fn in (ops["resize"].device_taps, ops["resize"]._interp_matrix,
+               ops["resize"].device_constant, pyramid_int._int_taps,
                ops["pyramid"]._down_matrix, ops["pyramid"]._up_matrix,
                ops["color"]._nv12_scaled_mats):
         fn.cache_clear()
@@ -1022,6 +1060,308 @@ def graph_phase(st, cfg, frames, nv12, st4, frames4, nv12_4, dev):
             os.chdir(cwd)
     check(not eager.programs.programs, "the eager stand-in built no program")
     return metrics
+
+
+# ---- phase "programs" ----------------------------------------------------
+
+PROG_BATCHES = (2, 4)      # stitch_batch sizes held and timed
+RESOLVE_REPS = 5           # re-solves timed per side
+
+
+class EagerPrograms:
+    """A ProgramSet stand-in that runs each function eagerly on its
+    inputs: a re-solve's device stages with no program (the reference the
+    programs are held against)."""
+    stream = None
+
+    def prepare(self, step_key, fn, *inputs, share=False):
+        return types.SimpleNamespace(output=None)
+
+    def launch(self, step_key, fn, *inputs):
+        return fn(*inputs)
+
+
+def _recording_run(pipe, out: list):
+    """pipe.run, recording each displacement it returns."""
+    run = pipe.run
+
+    def wrapped(frames):
+        disp = run(frames)
+        out.append(disp)
+        return disp
+    pipe.run = wrapped
+
+
+def captures_ok(fn, dev):
+    """(True, "") if fn() can be captured into a CUDA graph on `dev`, else
+    (False, the error): the warm-up runs on a side stream first."""
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        fn()
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream,
+                              capture_error_mode="thread_local"):
+            fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        return True, ""
+    except Exception as e:               # the answer, not a failure
+        torch.cuda.synchronize()
+        return False, repr(e)[:200]
+
+
+def resolve_pair(st, cfg, frames2, dev, label):
+    """Two stitchers of st's calibration and one seed: `a` with its
+    re-solve's programs captured ahead (prewarm_mesh), `b` with every
+    stage eager. One re-solve each: the displacement, the installed maps
+    and (update_masks) weights held at max abs 0. Returns metrics."""
+    from video_stitcher_tpu_torch import Stitcher
+    from video_stitcher_tpu_torch.mesh.pipeline import mesh_pipeline
+    a, b = Stitcher(cfg, device=dev), Stitcher(cfg, device=dev)
+    for s in (a, b):
+        s._install(st.geom, st.state_global, st.aux)
+    a.prewarm_mesh()
+    mesh_pipeline(b).programs = EagerPrograms()
+    disps = {"a": [], "b": []}
+    _recording_run(a._mesh_pipe, disps["a"])
+    _recording_run(b._mesh_pipe, disps["b"])
+    ok = a.recalibrate_mesh(frames2) and b.recalibrate_mesh(frames2)
+    torch.cuda.synchronize()
+    da, db = disps["a"][0], disps["b"][0]
+    d_disp = float(np.abs(da - db).max()) if ok else float("nan")
+    d_maps = float((a.state.fused_maps - b.state.fused_maps).abs().max())
+    d_w = max(float((x - y).abs().max()) for x, y in zip(
+        a.state.weight_pyr + (a.state.valid_mask,),
+        b.state.weight_pyr + (b.state.valid_mask,)))
+    units = {p.name: p.replays for p in
+             a._mesh_pipe.programs.programs.values()}
+    check(ok and d_disp == 0 and d_maps == 0 and d_w == 0,
+          f"re-solve {label}: programs against the eager stages with the "
+          f"same draws: displacement max abs {d_disp}, installed maps "
+          f"{d_maps}, weights {d_w}; replays {units}")
+    return {"disp_max_abs": d_disp, "maps_max_abs": d_maps,
+            "weights_max_abs": d_w, "replays": units}
+
+
+def programs_phase(st, cfg, frames, frames2, nv12, dev):
+    """Phase "programs": the programs of the JAX package's other jits at
+    the default cell. stitch_batch (B = 2 and 4 RGB, 2 NV12),
+    stitch_int16 (live state and state_global), output and the sharded
+    step on [card] * k (k = 1-4, pano and output), each held against its
+    eager module function at max abs 0 on the installed state, after a
+    swap to perturbed maps, at each interpolate_states step, swapped back
+    and after the caches were cleared and memory written over, with no
+    new capture; their eager and graphed ms in turns; the API calls per
+    call; each key's capture seconds and pool bytes. Then the re-solve:
+    its programs against the eager stages with the same draws (both
+    recalib_chunked settings, update_masks on), the API calls of one
+    re-solve, and its eager and graphed seconds. Returns (K1 launches
+    on the phase, metrics)."""
+    from video_stitcher_tpu_torch import Stitcher
+    from video_stitcher_tpu_torch.mesh.pipeline import mesh_pipeline
+    from video_stitcher_tpu_torch.ops.remap_strips import (
+        plan_remap, remap_strips)
+    from video_stitcher_tpu_torch.parallel.shard import build_sharded_step
+    from video_stitcher_tpu_torch.pipeline.stitcher import (
+        output_frame, stitch_batch_pano, stitch_pano_int16)
+    log("phase programs")
+    remap_strips.launches = 0
+    warm0 = captures(st)
+    geom = st.geom
+    oh, ow = st._out_size(geom)
+    x, x2 = (torch.as_tensor(f, device=dev) for f in (frames, frames2))
+    xn = torch.as_tensor(nv12, device=dev)
+    pano = st.stitch(x, device=True)
+    g = st.state_global
+    plan_g = plan_remap(g.fused_maps, geom.warp_src_h, geom.warp_src_w)
+    batches = {f"stitch_batch B={b} RGB": torch.stack([x, x2] * (b // 2))
+               for b in PROG_BATCHES}
+    batches["stitch_batch B=2 NV12"] = torch.stack([xn, xn])
+    shards = {}
+    for k in SHARD_KS:
+        shards[k] = Stitcher(cfg, device=dev)
+        shards[k]._shard_devices = [dev] * k
+        shards[k].swap_state(st.state)
+
+    def eager_sharded(s, out):
+        sh = s._sharded
+        return build_sharded_step(geom, [dev] * len(sh.shards),
+                                  (oh, ow) if out else None)(
+            [x[c.lo:c.hi] for c in sh.shards], sh)
+
+    keys = {}
+    for label, fb in batches.items():
+        keys[label] = (lambda fb=fb: st.stitch_batch(fb, device=True),
+                       lambda fb=fb: stitch_batch_pano(
+                           fb, *st._snapshot()))
+    keys["stitch_int16 live"] = (
+        lambda: st.stitch_int16(x, device=True),
+        lambda: stitch_pano_int16(x, st.state, geom, st.aux["weights0"],
+                                  st.plan))
+    keys["stitch_int16 state_global"] = (
+        lambda: st.stitch_int16(x, state=g, device=True),
+        lambda: stitch_pano_int16(x, g, geom, st.aux["weights0"], plan_g))
+    # output returns the host frame: both sides download theirs
+    keys["output"] = (
+        lambda: torch.as_tensor(st.output(pano)),
+        lambda: torch.as_tensor(st.finalize_out(output_frame(pano, oh,
+                                                             ow))))
+    for k, s in shards.items():
+        for out in (False, True):
+            keys[f"sharded k={k} {'stitch_out' if out else 'stitch'}"] = (
+                lambda s=s, out=out: (s.stitch_out if out else s.stitch)(
+                    x, device=True),
+                lambda s=s, out=out: eager_sharded(s, out))
+    held = {}
+
+    def hold(label):
+        worst = {}
+        for name, (graphed, eager) in keys.items():
+            got, want = graphed(), eager()
+            worst[name] = int((got.to(torch.int16)
+                               - want.to(torch.int16)).abs().max())
+        held[label] = worst
+        check(max(worst.values()) == 0, f"programs: every new key against "
+              f"its eager module function, {label}: max abs {worst}")
+
+    everyone = [st] + list(shards.values())
+    hold("the installed state")
+    caps = {id(s): all_captures(s) for s in everyone}
+    old = st.state
+    new = old._replace(fused_maps=torch.as_tensor(
+        perturbed_maps(old.fused_maps.cpu().numpy()), device=dev))
+    for s in everyone:
+        s.swap_state(new)
+    hold("perturbed maps")
+    for t in GRAPH_INTERP:
+        mid = st.interpolate_states(old, new, t)
+        for s in everyone:
+            s.swap_state(mid)
+        hold(f"interpolate_states t={t}")
+    for s in everyone:
+        s.swap_state(old)
+    hold("the state swapped back")
+    clear_tap_caches()
+    torch.cuda.empty_cache()
+    fill = min(GRAPH_FILL_BYTES, torch.cuda.mem_get_info(dev)[0] // 2)
+    filler = torch.zeros(fill, dtype=torch.uint8, device=dev)
+    hold(f"caches cleared, {fill} bytes of zeros allocated")
+    del filler
+    check(all(all_captures(s) == caps[id(s)] for s in everyone)
+          and all(set(c.values()) == {1} for c in caps.values()),
+          "programs: no swap captured again, one capture per key")
+
+    # ---- times, API calls, captures and pools
+    times, calls = {}, {}
+    for name, (graphed, eager) in keys.items():
+        times[name] = timed_pairs({"eager": eager, "graph": graphed},
+                                  reps=REPS // 2)
+        calls[name] = {"graph": api_calls(graphed),
+                       "eager": api_calls(eager, reps=2)}
+        t, c = times[name], calls[name]
+        log(f"  {name}: ms median (min-max) of {REPS // 2} in turns: eager "
+            f"{t['eager'][0]:.4f} ({t['eager'][1]:.4f}-{t['eager'][2]:.4f})"
+            f", graph {t['graph'][0]:.4f} ({t['graph'][1]:.4f}-"
+            f"{t['graph'][2]:.4f}); API calls per call {c['graph']}, "
+            f"eager {kernel_launches(c['eager']):.0f} kernel launches")
+    for name, c in calls.items():
+        want = 1
+        if name.startswith("sharded"):
+            s = shards[int(name.split("k=")[1].split()[0])]
+            want = sum(c_.hi > c_.lo for c_ in s._sharded.shards) + 1
+        check(c["graph"].get("cudaGraphLaunch") == want
+              and kernel_launches(c["graph"]) == 0,
+              f"{name}: {want} cudaGraphLaunch and no kernel launch a call "
+              f"({c['graph']})")
+    progs = {}
+    for s in everyone:
+        for set_name, ps in program_sets(s).items():
+            if set_name == "re-solve":
+                continue
+            for p in ps.programs.values():
+                key = (f"sharded k={len(s._sharded.shards)} {set_name}: "
+                       if s is not st else "") + p.name
+                progs[key] = {"capture_s": p.capture_s,
+                              "pool_bytes": p.pool_bytes,
+                              "replays": p.replays,
+                              "k1_launches": p.k1_launches}
+    for k, v in progs.items():
+        log(f"  program {k}: capture {v['capture_s']:.4f} s (warm-up "
+            f"included), pool {v['pool_bytes']} bytes, {v['replays']} "
+            f"replays, K1 {v['k1_launches']} a replay")
+
+    # ---- the re-solve
+    # why RANSAC's DLT takes cofactor determinants, not an SVD
+    dlt = torch.randn(geom.num_images, 256, 8, 9, device=dev)
+    svd_ok, svd_err = captures_ok(
+        lambda: torch.linalg.svd(dlt, full_matrices=True), dev)
+    det_ok, det_err = captures_ok(
+        lambda: torch.linalg.det(dlt[..., :8].double()), dev)
+    log(f"  capture of torch.linalg.svd on [6, 256, 8, 9]: "
+        f"{'ok' if svd_ok else 'refused: ' + svd_err}; of the f64 8x8 "
+        f"determinants: {'ok' if det_ok else 'refused: ' + det_err}")
+    check(det_ok, "the DLT's f64 determinants can be captured")
+    resolve = {}
+    for chunked in (True, False):
+        rcfg = dataclasses.replace(cfg, recalib_chunked=chunked,
+                                   update_masks=True)
+        resolve[f"chunked={chunked}"] = resolve_pair(
+            st, rcfg, frames2, dev, f"recalib_chunked={chunked}, "
+            f"update_masks")
+    pipe = mesh_pipeline(st)
+    for p in pipe.programs.programs.values():
+        log(f"  re-solve program {p.name}: capture {p.capture_s:.4f} s, "
+            f"pool {p.pool_bytes} bytes, {p.replays} replays, K1 "
+            f"{p.k1_launches} a replay")
+    units = 3 + 3 * geom.num_images
+    r_calls = api_calls(lambda: st.recalibrate_mesh(frames2), reps=2)
+    eager_st = Stitcher(cfg, device=dev)
+    eager_st._install(geom, st.state_global, st.aux)
+    mesh_pipeline(eager_st).programs = EagerPrograms()
+    e_calls = api_calls(lambda: eager_st.recalibrate_mesh(frames2), reps=2)
+    log(f"  API calls per re-solve: programs {r_calls}; eager "
+        f"{kernel_launches(e_calls):.0f} kernel launches")
+    check(r_calls.get("cudaGraphLaunch") == units
+          and kernel_launches(r_calls) < kernel_launches(e_calls) / 4,
+          f"a re-solve makes one cudaGraphLaunch per unit ({units}: warp, "
+          f"salience, detect and match and inliers per camera, compose) "
+          f"and {kernel_launches(r_calls):.0f} kernel launches outside "
+          f"them (draws, host stages, the install) against "
+          f"{kernel_launches(e_calls):.0f} eager")
+    r_times = {"eager": [], "graph": []}
+    for _ in range(RESOLVE_REPS):
+        for side, s in (("eager", eager_st), ("graph", st)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.recalibrate_mesh(frames2)
+            torch.cuda.synchronize()
+            r_times[side].append(time.perf_counter() - t0)
+    r_med = {k: (statistics.median(v), min(v), max(v))
+             for k, v in r_times.items()}
+    log(f"  recalibrate_mesh s median (min-max) of {RESOLVE_REPS} in "
+        f"turns: eager {r_med['eager'][0]:.4f} ({r_med['eager'][1]:.4f}-"
+        f"{r_med['eager'][2]:.4f}), graph {r_med['graph'][0]:.4f} "
+        f"({r_med['graph'][1]:.4f}-{r_med['graph'][2]:.4f})")
+    launches = remap_strips.launches
+    warm = captures(st) - warm0
+    log(f"  K1 launches in phase programs: {launches} ({warm} warm-ups on "
+        f"the default stitcher)")
+    metrics = {"max_abs": held, "ms": times, "api_calls": calls,
+               "programs": progs, "resolve": resolve,
+               "resolve_api_calls": r_calls,
+               "svd_captures": svd_ok,
+               "resolve_eager_kernel_launches": kernel_launches(e_calls),
+               "recalibrate_mesh_s": r_med,
+               "resolve_programs": {p.name: {
+                   "capture_s": p.capture_s, "pool_bytes": p.pool_bytes}
+                   for p in pipe.programs.programs.values()}}
+    st.swap_state(old)
+    del shards, everyone, eager_st, keys
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return launches, metrics
 
 
 # ---- the live Runner ------------------------------------------------------
@@ -2239,6 +2579,7 @@ def shard_phase(st, cfg, frames, frames2, dev):
                            ref_out)
     expected = [sst.stitch_out(s) for s in sets]
     path_launches = remap_strips.launches
+    warm_sst = captures(sst)          # the shard programs' warm-ups
     rcfg = dataclasses.replace(cfg, pipeline_mode="threaded",
                                recalibrate=False)
     sink = CheckSink(expected)
@@ -2282,10 +2623,11 @@ def shard_phase(st, cfg, frames, frames2, dev):
           f"Runner's two calls on its first set)")
     # each sharded step twice (pano, output), then the 2-shard stitcher:
     # stitch, stitch_out and the expected outputs, then the Runner
-    want = 2 * sum(per_call.values()) + 2 * (2 + len(sets)) + runner_launches
+    want = (2 * sum(per_call.values()) + 2 * (2 + len(sets)) + warm_sst
+            + runner_launches)
     check(path_launches == want > 0, f"the shard path ran through K1: "
           f"{path_launches} launches, once per non-empty shard of each "
-          f"sharded call ({want})")
+          f"sharded call and of each capture's warm-up ({want})")
 
     # ---- K1 against its plain version on one shard's maps; times
     sh = sharded[2]
@@ -2370,12 +2712,15 @@ def int16_phase(st, frames, scene, valid, dev):
     lay = geom.layout
     frames_dev = torch.as_tensor(frames, device=dev)
     remap_strips.launches = 0
+    warm = captures(st)
     p16 = st.stitch_int16(frames_dev, state=g)
     p16_live = st.stitch_int16(frames_dev)
     torch.cuda.synchronize()
     launches = remap_strips.launches
-    check(launches == 2, f"K1 launched {launches} times in 2 stitch_int16 "
-          f"calls, once each")
+    warm = captures(st) - warm
+    check(launches == 2 + warm, f"K1 launched {launches} times in 2 "
+          f"stitch_int16 calls, once each (a replay's counted as its "
+          f"launch), and {warm} in the warm-ups before their captures")
     check(p16.shape == (lay.pano_h, lay.pano_w, 3) and p16.dtype == np.uint8
           and p16_live.shape == p16.shape, "stitch_int16 shape and dtype")
     plan_g = plan_remap(g.fused_maps, geom.warp_src_h, geom.warp_src_w)
@@ -2640,11 +2985,12 @@ def entries_phase(cfg, frames, dev):
         from_file = Stitcher(cfg)
         from_file.load_calibration(path, frames_shape=frames.shape)
     remap_strips.launches = 0
+    warm = captures(saved) + captures(from_file)   # the re-solve's prewarm
     out_saved = saved.stitch_out(frames)
     out_loaded = from_file.stitch_out(frames)
     launches = remap_strips.launches
     d_out = max_abs_u8(out_saved, out_loaded)
-    check(launches == 2 + captures(saved) + captures(from_file)
+    check(launches == 2 + captures(saved) + captures(from_file) - warm
           and from_file.device.type == "cuda" and d_out == 0,
           f"stitch_out from the loaded checkpoint: max abs {d_out} from "
           f"the state it was saved from, K1 launches {launches}")
@@ -2773,14 +3119,15 @@ def run(cfg, dev, cfg4, small4) -> int:
     log(f"  calibrate {calib_s:.3f} s (first mesh solve "
         f"{sum(mesh_s):.3f} s), K1 launches {calib_launches}")
     check(len(mesh_s) == int(cfg.enable_local) and calib_launches == len(
-        mesh_s), "calibrate solved the mesh once, its estimation warp "
-        "through K1")
+        mesh_s) + captures(st), "calibrate solved the mesh once, its "
+        "estimation warp through K1 (and the warm-up before its capture)")
+    calib_caps = captures(st)
     panos = [counted(st.stitch, f) for f in (frames, frames2, frames)]
     panos_nv12 = [counted(st.stitch_nv12, nv12) for _ in range(2)]
     outs = [counted(st.stitch_out, f) for f in (frames, frames2)]
     batch = counted(st.stitch_batch, np.stack([frames, frames2]))
     main_launches = remap_strips.launches
-    main_caps = captures(st)
+    main_caps = captures(st) - calib_caps
     log(f"  K1 launches on the main path: {main_launches} (calibrate "
         f"{calib_launches}, per stitch* call {counts} besides the "
         f"{main_caps} warm-ups before the captures of "
@@ -2960,11 +3307,29 @@ def run(cfg, dev, cfg4, small4) -> int:
     graph_metrics = graph_phase(st, cfg, frames, nv12, st4, frames4, nv12_4,
                                 dev)
     del frames4
-    runner_launches, runner_metrics = runner_phase(st, cfg, frames, frames2,
-                                                   st4, nv12_4)
-    live_launches, live_metrics = live_phase(st, cfg, frames, frames2)
+    prog_launches, prog_metrics = programs_phase(st, cfg, frames, frames2,
+                                                 nv12, dev)
+    # every capture from here on: the thread it ran on
+    from video_stitcher_tpu_torch.pipeline.step_graph import Program
+    capture, threads_seen = Program.capture, []
+
+    def watched(self, *inputs):
+        threads_seen.append((threading.current_thread().name, self.name))
+        return capture(self, *inputs)
+    Program.capture = watched
+    try:
+        runner_launches, runner_metrics = runner_phase(
+            st, cfg, frames, frames2, st4, nv12_4)
+        live_launches, live_metrics = live_phase(st, cfg, frames, frames2)
+    finally:
+        Program.capture = capture
+    off_main = [t for t in threads_seen if t[0] != "MainThread"]
+    log(f"  captures in the Runner phases: {len(threads_seen)}, "
+        f"{threads_seen[:8]}")
+    check(not off_main, f"no capture ran on a Runner thread (the re-solve "
+          f"thread's included): {off_main}")
     for name, s in (("default", st), ("config 4", st4)):
-        caps = s.programs.captures
+        caps = all_captures(s)
         log(f"  {name} captures per key after the Runner phases: {caps}")
         check(set(caps.values()) == {1}, f"{name}: each key captured once "
               f"through every Runner phase, swaps and re-solves included")
@@ -2982,7 +3347,7 @@ def run(cfg, dev, cfg4, small4) -> int:
         "runner": runner_metrics, "shard": shard_metrics,
         "int16": int16_metrics, "helpers": helper_metrics,
         "entries": entry_metrics, "live": live_metrics,
-        "graph": graph_metrics}}))
+        "graph": graph_metrics, "programs": prog_metrics}}))
 
     log(json.dumps({"kernels": [{
         "name": "K1 remap_gain", "route": "cuda", "source": K1_SOURCE,
@@ -3001,7 +3366,8 @@ def run(cfg, dev, cfg4, small4) -> int:
                              "shard": shard_launches,
                              "int16": int16_launches,
                              "entries": entry_launches,
-                             "live": live_launches},
+                             "live": live_launches,
+                             "programs": prog_launches},
         "prewarp_f32_source": pw_entry},
         k2_entry]}))
     log(card)

@@ -133,8 +133,7 @@ def _public_names(path: pathlib.Path):
 #: ROADMAP's "Not ported, by design": TPU scheduling with no meaning on
 #: Hopper (the strip planner, layout repack, VMEM budget and their
 #: constants; the bf16 row-aligned source prep; the XLA compile cache and
-#: the CPU-backend commit; shard_map's camera padding; the mesh
-#: programs' compile prewarm).
+#: the CPU-backend commit; shard_map's camera padding).
 NOT_PORTED = {
     "ops/remap_strips.py": {
         "CHUNK_W", "ChunkStats", "GROUP", "PX", "ROT_KWS", "ROW_ALIGN",
@@ -143,7 +142,6 @@ NOT_PORTED = {
         "groups_from_packed", "pad_maps", "pad_maps_device", "plan_strips",
         "plan_strips_from_stats", "prep_source", "prep_source_nv12",
         "repack_maps_lane", "resident_src_budget"},
-    "mesh/pipeline.py": {"prewarm_mesh_programs"},
     "parallel/shard.py": {"pad_cameras"},
     "utils/hostdev.py": {"commit", "host_eager"},
     "utils/xla_cache.py": {"build_programs", "cache_dir", "enable",
@@ -210,6 +208,9 @@ SIGNATURE_ALLOW = {
         "each state installed, never checkpointed")
        for f in ("warp_strip_off", "warp_chunk_packed", "warp_maps_lane",
                  "warp_groups")},
+    ("mesh/pipeline.py", "prewarm_mesh_programs", "strip_warp"):
+        "chose between the TPU strip kernel and XLA's gather for the "
+        "estimation warp; the port's is always K1 over the global plan",
     ("features/ransac.py", "ransac_homography", "key"):
         "a JAX PRNG key; the port draws from a torch.Generator (`generator`)",
     ("ops/remap_strips.py", "remap_strips", "src_planar"):

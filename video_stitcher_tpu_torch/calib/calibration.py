@@ -46,7 +46,7 @@ from video_stitcher_tpu_torch.geometry.cylindrical import (
 from video_stitcher_tpu_torch.mesh.mesh2map import upsample_mesh
 from video_stitcher_tpu_torch.ops.morphology import dilate3x3
 from video_stitcher_tpu_torch.ops.remap import remap_planar
-from video_stitcher_tpu_torch.ops.resize import resize_planar
+from video_stitcher_tpu_torch.ops.resize import device_constant, resize_planar
 from video_stitcher_tpu_torch.utils.device import resolve_device
 
 
@@ -270,6 +270,19 @@ def _compose_products_device(seam_masks: torch.Tensor,
     return weights0, overlap_masks
 
 
+def _f32(values: tuple) -> np.ndarray:
+    return np.asarray(values, np.float32)
+
+
+def _prewarp_scale(compose_w: int, compose_h: int, src_w: int,
+                   src_h: int) -> np.ndarray:
+    """f32 [1, 2, 1, 1]: the compose size over the source size, x then
+    y."""
+    return np.asarray([np.float32(compose_w / src_w),
+                       np.float32(compose_h / src_h)],
+                      np.float32).reshape(1, 2, 1, 1)
+
+
 def _to_warp_source(maps, geom: StitchGeometry):
     """Raw band-map values [N, 2, bh, bw] -> warp-source pixel
     coordinates. "exact": the maps already are full-res source coords;
@@ -281,10 +294,9 @@ def _to_warp_source(maps, geom: StitchGeometry):
     half-pixel + truncation bias."""
     if geom.map_convention == "exact":
         if geom.prewarp:
-            sx = np.float32(geom.compose_w / geom.src_w)
-            sy = np.float32(geom.compose_h / geom.src_h)
-            sc = torch.as_tensor(np.asarray([sx, sy], np.float32),
-                                 device=maps.device).reshape(1, 2, 1, 1)
+            sc = device_constant(_prewarp_scale, (
+                geom.compose_w, geom.compose_h, geom.src_w, geom.src_h),
+                maps.device)
             maps = (maps + np.float32(0.5)) * sc - np.float32(0.5)
         return maps
     s = geom.compose_scale
@@ -345,8 +357,7 @@ def compose_fused_maps_from_disp(krinv: torch.Tensor, disp_c: torch.Tensor,
     bd = upsample_mesh(disp_c, bh, bw)                   # [N, 2, bh, bw]
     gx = torch.arange(bw, dtype=torch.float32, device=dev)[None, None, :]
     gy = torch.arange(bh, dtype=torch.float32, device=dev)[None, :, None]
-    corners = torch.as_tensor(np.asarray(lay.corners, np.float32),
-                              device=dev)
+    corners = device_constant(_f32, (tuple(lay.corners),), dev)
     u = gx - bd[:, 0] + np.float32(lay.u0) + corners[:, None, None]
     v = gy - bd[:, 1] + np.float32(lay.v0)
     mx, my = eval_cyl_backward(krinv, u, v, np.float32(lay.scale))

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from video_stitcher_tpu_torch.ops.resize import resize_planar
+from video_stitcher_tpu_torch.ops.resize import device_constant, resize_planar
 
 # 16-point Bresenham circle of radius 3, clockwise from 12 o'clock (dy, dx)
 _CIRCLE = np.array([
@@ -141,15 +141,33 @@ def _gather(img: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
     return flat.gather(1, idx).reshape(px.shape)
 
 
-def _orientation(smooth: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor):
-    """Intensity-centroid angle per keypoint (orb.cpp IC_Angle): smooth
-    [B, H, W], xs, ys [B, K] -> [B, K]."""
+def _patch_offsets():
+    """(dy, dx) f32 [P] of the pixels of the orientation patch's disc."""
     r = PATCH_R
     dys, dxs = np.mgrid[-r:r + 1, -r:r + 1]
     circ = (dys ** 2 + dxs ** 2) <= r * r
-    dev = smooth.device
-    dys_f = torch.as_tensor(dys[circ].astype(np.float32), device=dev)
-    dxs_f = torch.as_tensor(dxs[circ].astype(np.float32), device=dev)
+    return dys[circ].astype(np.float32), dxs[circ].astype(np.float32)
+
+
+def _brief_offsets():
+    return _brief_pattern().astype(np.float32)
+
+
+def _level_tables(w0: int, h0: int, shapes: tuple):
+    """Per level of `shapes` ((h, w), ...): its x offset in the level
+    atlas, and its x and y scale against the h0 x w0 level 0, f32."""
+    widths = [w for _, w in shapes]
+    return (np.cumsum([0] + widths[:-1]).astype(np.float32),
+            np.asarray([w / w0 for w in widths], np.float32),
+            np.asarray([h / h0 for h, _ in shapes], np.float32))
+
+
+def _orientation(smooth: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor):
+    """Intensity-centroid angle per keypoint (orb.cpp IC_Angle): smooth
+    [B, H, W], xs, ys [B, K] -> [B, K]. The patch offsets are device
+    constants (ops/resize.device_constant): nothing is uploaded per
+    call."""
+    dys_f, dxs_f = device_constant(_patch_offsets, (), smooth.device)
     h, w = smooth.shape[-2], smooth.shape[-1]
     pxc = torch.clamp((xs[..., None] + dxs_f).to(torch.int32), 0, w - 1)
     pyc = torch.clamp((ys[..., None] + dys_f).to(torch.int32), 0, h - 1)
@@ -172,8 +190,7 @@ def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
 def _describe(smooth: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
               angles: torch.Tensor) -> torch.Tensor:
     """Rotated-BRIEF 256-bit descriptors -> int32 [B, K, 8]."""
-    pat = torch.as_tensor(_brief_pattern().astype(np.float32),
-                          device=smooth.device)               # [256, 2, 2]
+    pat = device_constant(_brief_offsets, (), smooth.device)  # [256, 2, 2]
     h, w = smooth.shape[-2], smooth.shape[-1]
     ca = torch.cos(angles)[..., None, None]                   # [B, K, 1, 1]
     sa = torch.sin(angles)[..., None, None]
@@ -273,13 +290,9 @@ def detect_and_describe(gray: torch.Tensor, mask=None, *,
     # own level's rectangle (the in-bounds border keeps every tap inside)
     atlas = torch.cat([F.pad(_box5(im), (0, 0, 0, h0 - im.shape[-2]))
                        for im in imgs], dim=2)
-    offs = torch.as_tensor(np.cumsum([0] + [im.shape[-1] for im in
-                                            imgs[:-1]]).astype(np.float32),
-                           device=dev)
-    sx_l = torch.as_tensor(np.asarray([im.shape[-1] / w0 for im in imgs],
-                                      np.float32), device=dev)
-    sy_l = torch.as_tensor(np.asarray([im.shape[-2] / h0 for im in imgs],
-                                      np.float32), device=dev)
+    offs, sx_l, sy_l = device_constant(
+        _level_tables, (w0, h0, tuple(tuple(im.shape[-2:]) for im in imgs)),
+        dev)
     ax = xs * sx_l[lvls] + offs[lvls]
     ay = ys * sy_l[lvls]
     angles = _orientation(atlas, ax, ay)

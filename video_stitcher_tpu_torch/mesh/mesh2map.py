@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from video_stitcher_tpu_torch.ops.remap import remap_planar
+from video_stitcher_tpu_torch.ops.resize import device_constant
 from video_stitcher_tpu_torch.utils.device import resolve_device
 
 
@@ -38,9 +39,10 @@ def _upsample_matrix(n_in: int, n_out: int) -> np.ndarray:
     return m
 
 
-@functools.lru_cache(maxsize=64)
 def _device_upsample_matrix(n_in: int, n_out: int, device: torch.device):
-    return torch.as_tensor(_upsample_matrix(n_in, n_out), device=device)
+    """_upsample_matrix on `device`, cached (ops/resize.device_constant,
+    so a program keeps it)."""
+    return device_constant(_upsample_matrix, (n_in, n_out), device)
 
 
 @contextlib.contextmanager

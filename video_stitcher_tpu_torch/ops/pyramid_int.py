@@ -25,7 +25,9 @@ import numpy as np
 import torch
 
 from video_stitcher_tpu_torch.ops.pyramid import _down_matrix, _up_matrix
-from video_stitcher_tpu_torch.ops.resize import apply_taps, matrix_taps
+from video_stitcher_tpu_torch.ops.resize import (
+    apply_taps, hand_out, matrix_taps,
+)
 
 
 @functools.lru_cache(maxsize=256)
@@ -42,13 +44,21 @@ def _up_matrix_i(n: int, n_out: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=256)
-def _int_taps(make_matrix, args: tuple, device: torch.device):
-    """The integer matrix's taps as (idx i64, w int32) tensors on
-    `device`."""
+def _cached_int_taps(make_matrix, args: tuple, device: torch.device):
     m = make_matrix(*args)
     idx, w = matrix_taps(m)
     return (torch.as_tensor(idx, device=device),
             torch.as_tensor(np.rint(w).astype(np.int32), device=device))
+
+
+def _int_taps(make_matrix, args: tuple, device: torch.device):
+    """The integer matrix's taps as (idx i64, w int32) tensors on
+    `device`, cached and handed out as resize.device_taps hands out its
+    tables (a program keeps them)."""
+    return hand_out(_cached_int_taps(make_matrix, args, device))
+
+
+_int_taps.cache_clear = _cached_int_taps.cache_clear
 
 
 def _apply_i32(x: torch.Tensor, taps_w, taps_h) -> torch.Tensor:

@@ -56,7 +56,9 @@ def remap_planar(img, map_x, map_y, *, interpolation="linear",
     img_flat = img.to(torch.float32).reshape(c, h * w)
     mx = map_x.to(torch.float32)
     my = map_y.to(torch.float32)
-    fill = torch.tensor(border_value, dtype=torch.float32, device=img.device)
+    # a Python scalar: no upload (a capture refuses one from pageable
+    # host memory)
+    fill = float(border_value)
 
     if interpolation == "nearest":
         # cvRound is round-half-to-even, as torch.round

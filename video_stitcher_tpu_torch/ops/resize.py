@@ -65,25 +65,51 @@ def _cached_taps(make_matrix: Callable[..., np.ndarray], args: tuple,
 _KEEPERS: List[list] = []
 
 
+def hand_out(table):
+    """Append a cached device table to every list registered by
+    keeping_taps, and return it: what each cache of device tables calls
+    on every table it hands out."""
+    for keep in _KEEPERS:
+        keep.append(table)
+    return table
+
+
 def device_taps(make_matrix: Callable[..., np.ndarray], args: tuple,
                 device: torch.device):
     """_dense_taps(make_matrix(*args), device), cached so the per-frame
     path uploads no index arrays. Each table handed out is also appended
     to every list registered by keeping_taps."""
-    taps = _cached_taps(make_matrix, args, device)
-    for keep in _KEEPERS:
-        keep.append(taps)
-    return taps
+    return hand_out(_cached_taps(make_matrix, args, device))
 
 
 device_taps.cache_clear = _cached_taps.cache_clear
 device_taps.cache_info = _cached_taps.cache_info
 
 
+@functools.lru_cache(maxsize=256)
+def _cached_constant(make: Callable, args: tuple, device: torch.device):
+    value = make(*args)
+    if isinstance(value, tuple):
+        return tuple(torch.as_tensor(v, device=device) for v in value)
+    return torch.as_tensor(value, device=device)
+
+
+def device_constant(make: Callable, args: tuple, device: torch.device):
+    """make(*args) (a numpy array, or a tuple of them) as tensors on
+    `device`, built once and cached: a program reads it at its address,
+    and a capture may not upload from pageable host memory. Handed out as
+    device_taps hands out its tables."""
+    return hand_out(_cached_constant(make, args, device))
+
+
+device_constant.cache_clear = _cached_constant.cache_clear
+
+
 @contextlib.contextmanager
 def keeping_taps(keep: list):
-    """Append to `keep` every table device_taps hands out in this block,
-    on any thread. A captured CUDA graph reads its tables at their
+    """Append to `keep` every table a cache hands out in this block
+    (device_taps, device_constant and the other caches that call
+    hand_out), on any thread. A captured CUDA graph reads its tables at their
     addresses, so its owner keeps them (pipeline/step_graph.py): a table
     the cache evicts is freed, and its memory may hold anything by the
     next replay."""

@@ -478,12 +478,17 @@ class Runner:
             else:
                 log.info("using pre-calibrated stitcher")
             # build the programs of the keys the Runner uses (their CUDA
-            # graphs on the card) now, while none of its threads launches
-            # work: stitch_out for every frame, stitch for the one
-            # calib.jpg. The outputs are not used.
+            # graphs on the card; a capture synchronises the device) now,
+            # while none of its threads launches work: stitch_out for
+            # every frame, stitch for the one calib.jpg, and the live
+            # re-solve's for frames of this source's format. The outputs
+            # are not used.
             self.stitcher.stitch_out(frames, device=True)
             if not self.consume_device:
                 self.stitcher.stitch(frames, device=True)
+            if (cfg.recalibrate and cfg.enable_local
+                    and self.stitcher.aux is not None):
+                self.stitcher.prewarm_mesh(frames)
         except BaseException:
             # pre-loop failure: the ingest server/threads must not be
             # left running (a retry in-process would find the capture
