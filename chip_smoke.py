@@ -1757,10 +1757,15 @@ def runner_4k(st4, nv12_4):
 def trace_busy(path: str) -> dict:
     """Share of a torch.profiler Chrome trace's span in which the card ran
     a kernel (and a copy): the union of their intervals over the span of
-    all the trace's events."""
+    all the trace's events of the profiler (the program's spans, category
+    "program", left out; a host without CUDA has only those)."""
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("ph") == "X" and "dur" in e]
+                  if e.get("ph") == "X" and "dur" in e
+                  and e.get("cat") != "program"]
+    if not events:
+        return {"kernel_share": 0.0, "copy_share": 0.0, "kernels": 0,
+                "span_ms": 0.0}
 
     def union(spans):
         total, end = 0.0, float("-inf")

@@ -244,3 +244,36 @@ def test_a_new_geometry_builds_new_programs(ring):
     fresh = Stitcher(cfg2, device="cpu")
     fresh.calibrate(ring["frames"])
     assert torch.equal(got, fresh.stitch_out(ring["frames"], device=True))
+
+
+def test_no_collection_holds_the_collector_off_while_graphs_capture():
+    """While any capture is under way the cyclic collector is off (a
+    collection could destroy an unreachable program's graph inside the
+    capture); after the last one it is as it was before the first."""
+    import gc
+    import threading
+    from video_stitcher_tpu_torch.pipeline.step_graph import no_collection
+    was = gc.isenabled()
+    try:
+        gc.enable()
+        inside, outside = threading.Event(), threading.Event()
+
+        def other():
+            with no_collection():
+                inside.set()
+                outside.wait(10)
+        t = threading.Thread(target=other)
+        with no_collection():
+            assert not gc.isenabled()
+            t.start()
+            assert inside.wait(10)
+        assert not gc.isenabled()          # the other capture is open
+        outside.set()
+        t.join(10)
+        assert not t.is_alive() and gc.isenabled()
+        gc.disable()                       # off before: off after
+        with no_collection(), no_collection():
+            assert not gc.isenabled()
+        assert not gc.isenabled()
+    finally:
+        (gc.enable if was else gc.disable)()

@@ -47,6 +47,7 @@ from video_stitcher_tpu_torch.mesh.mesh2map import upsample_mesh
 from video_stitcher_tpu_torch.ops.morphology import dilate3x3
 from video_stitcher_tpu_torch.ops.remap import remap_planar
 from video_stitcher_tpu_torch.ops.resize import device_constant, resize_planar
+from video_stitcher_tpu_torch.utils import trace
 from video_stitcher_tpu_torch.utils.device import resolve_device
 
 
@@ -229,8 +230,11 @@ def _seam_phase(frames: np.ndarray, cfg: StitcherConfig,
         out = remap_planar(small, torch.from_numpy(mx), torch.from_numpy(my))
         warped[i] = np.moveaxis(out.numpy(), 0, -1)
         masks[i] = _validity(mx, my, seam_w, seam_h).astype(np.uint8) * 255
-    gains = solve_gains(warped, masks)
-    return sc, gains, _seam_masks(masks, cfg, geom)
+    with trace.span("calibrate.gains"):
+        gains = solve_gains(warped, masks)
+    with trace.span("calibrate.seams"):
+        seam_masks = _seam_masks(masks, cfg, geom)
+    return sc, gains, seam_masks
 
 
 def _compose_products_device(seam_masks: torch.Tensor,
@@ -404,25 +408,37 @@ def calibrate(frames: np.ndarray, cfg: StitcherConfig,
     mesh_maps: optional f32 [N, 2, band_h, band_w] CPW backward maps in
     band coordinates (numpy or a tensor), composed into the fused maps;
     None gives the global warp alone (Stitcher.calibrate then solves the
-    CPW mesh itself)."""
+    CPW mesh itself).
+
+    Traced (utils/trace), each phase is a span: ``calibrate.cameras``
+    (the geometry), ``calibrate.warps`` (the seam-scale warps, with
+    ``calibrate.gains`` and ``calibrate.seams`` in it), ``calibrate.maps``
+    (the compose-scale maps, weights and overlaps) and
+    ``calibrate.weights`` (the weight pyramids and the fused maps)."""
     device = resolve_device(device)
     frames = np.asarray(frames)
     if frames.shape[0] != cfg.num_images:
         raise ValueError(f"{frames.shape[0]} frames for {cfg.num_images} "
                          f"cameras")
-    geom, cams_compose = plan_geometry(cfg)
-    sc, gains, seam_masks = _seam_phase(frames, cfg, geom, cams_compose)
-    aux = _compose_aux(cfg, geom, cams_compose, sc, seam_masks, device)
-    weight_pyr, valid_mask = build_weight_pyramids(aux["weights0"],
-                                                   geom.layout)
-    state = CalibState(
-        fused_maps=compose_fused_maps_device(
-            aux["band_maps"], None if mesh_maps is None else torch.as_tensor(
-                mesh_maps, dtype=torch.float32, device=device), geom),
-        gains=torch.as_tensor(np.asarray(gains, np.float32), device=device),
-        weight_pyr=tuple(w.contiguous() for w in weight_pyr),
-        valid_mask=valid_mask,
-    )
+    with trace.span("calibrate.cameras"):
+        geom, cams_compose = plan_geometry(cfg)
+    with trace.span("calibrate.warps"):
+        sc, gains, seam_masks = _seam_phase(frames, cfg, geom, cams_compose)
+    with trace.span("calibrate.maps"):
+        aux = _compose_aux(cfg, geom, cams_compose, sc, seam_masks, device)
+    with trace.span("calibrate.weights"):
+        weight_pyr, valid_mask = build_weight_pyramids(aux["weights0"],
+                                                       geom.layout)
+        state = CalibState(
+            fused_maps=compose_fused_maps_device(
+                aux["band_maps"], None if mesh_maps is None else
+                torch.as_tensor(mesh_maps, dtype=torch.float32,
+                                device=device), geom),
+            gains=torch.as_tensor(np.asarray(gains, np.float32),
+                                  device=device),
+            weight_pyr=tuple(w.contiguous() for w in weight_pyr),
+            valid_mask=valid_mask,
+        )
     return geom, state, aux
 
 

@@ -11,6 +11,14 @@ on the stitcher's device, as programs (``pipeline/step_graph.py``) where
 the JAX package jit-compiles them, captured ahead of the first re-solve
 by ``prewarm_mesh_programs``; the rig filters, the CPW solve and the
 coarse inversion run on the host.
+
+Traced (``utils/trace``), a re-solve's host stages are spans
+``resolve.warp`` (the estimation warp and the salience), ``resolve.detect``,
+``resolve.match``, ``resolve.ransac`` (the draw and the inliers),
+``resolve.fetch`` (the wait for the pinned downloads), ``resolve.filter``
+(the rig filters and the consensus trim) and ``resolve.solve`` (the CPW
+solve and the coarse inversion); each program replay is bracketed by
+markers on the re-solve's stream (``resolve.<step>``, ``resolve.end``).
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from video_stitcher_tpu_torch.pipeline.step_graph import (
 from video_stitcher_tpu_torch.ops.remap_strips import (
     plan_remap, remap_strips,
 )
+from video_stitcher_tpu_torch.utils import trace
 
 Y_DIFF_MAX = 40.0          # meshwarper.cpp:935
 X_DIST_SLACK = 300.0       # meshwarper.cpp:938
@@ -227,7 +236,7 @@ class MeshPipeline:
             shrink_px=cfg.mesh_shrink_px)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(rng_seed)
-        self.programs = ProgramSet(self.device)
+        self.programs = ProgramSet(self.device, mark="resolve")
         #: the re-solve's stream (None on the CPU)
         self.stream = self.programs.stream
         self._downloads = _Downloads(self.device)
@@ -365,50 +374,79 @@ class MeshPipeline:
         geom, cfg, ps = self.geom, self.cfg, self.programs
         c = geom.num_images
         frames = torch.as_tensor(frames, device=self.device)[:c]
-        bands, gray, masks = self.warp(frames)
-        sal = ps.launch(("salience",), self._salience, bands)
+        with trace.span("resolve.warp"):
+            bands, gray, masks = self.warp(frames)
+            sal = ps.launch(("salience",), self._salience, bands)
         fetch = self._downloads
         fetch.get("salience", sal)
         fields = ("p1", "p2", "ok", "inl", "dist")
         if cfg.recalib_chunked:
             # one camera, then one seam, at a time: one graph launch each,
             # so a live stitch loop's replays run between them
-            for i in range(c):
-                kp = ps.launch(("detect",), self._detect, gray[i], masks[i])
-                kps = self._stacked(kp)
-                for dst, src in zip(kps, kp):
-                    dst[i].copy_(src, non_blocking=True)
+            with trace.span("resolve.detect"):
+                for i in range(c):
+                    kp = ps.launch(("detect",), self._detect, gray[i],
+                                   masks[i])
+                    kps = self._stacked(kp)
+                    for dst, src in zip(kps, kp):
+                        dst[i].copy_(src, non_blocking=True)
             for idx in range(c):
                 a, d = idx, (idx - 1) % c
-                p1, p2, ok, dist = ps.launch(
-                    ("match",), self._match_one, kps.xy[a], kps.xy[d],
-                    kps.desc[a], kps.desc[d], kps.valid[a], kps.valid[d])
-                hyp = ransac.sample_hypotheses(ok[None], NUM_HYP,
-                                               self.generator)[0]
-                inl = ps.launch(("inliers",), _inliers, p1, p2, ok, hyp)
+                with trace.span("resolve.match"):
+                    p1, p2, ok, dist = ps.launch(
+                        ("match",), self._match_one, kps.xy[a], kps.xy[d],
+                        kps.desc[a], kps.desc[d], kps.valid[a],
+                        kps.valid[d])
+                with trace.span("resolve.ransac"):
+                    hyp = ransac.sample_hypotheses(ok[None], NUM_HYP,
+                                                   self.generator)[0]
+                    inl = ps.launch(("inliers",), _inliers, p1, p2, ok, hyp)
                 for name, t in zip(fields, (p1, p2, ok, inl, dist)):
                     fetch.get(f"{name}{idx}", t)
             if cfg.alphas[3] > 0.0:
                 kps = Keypoints(*(t.clone() for t in kps))
-            host = fetch.wait()
+            with trace.span("resolve.fetch"):
+                host = fetch.wait()
             p1b, p2b, okb, inlb, distb = (
                 [host[f"{name}{idx}"] for idx in range(c)]
                 for name in fields)
         else:
-            kps = ps.launch(("detect all",), self._detect, gray, masks)
+            with trace.span("resolve.detect"):
+                kps = ps.launch(("detect all",), self._detect, gray, masks)
             # every ring pair (idx vs idx-1 mod C) at once
-            p1, p2, ok, dist = ps.launch(("match all",), self._match_all,
-                                         kps.xy, kps.desc, kps.valid)
-            hyp = ransac.sample_hypotheses(ok, NUM_HYP, self.generator)
-            inl = ps.launch(("inliers all",), _inliers, p1, p2, ok, hyp)
+            with trace.span("resolve.match"):
+                p1, p2, ok, dist = ps.launch(("match all",),
+                                             self._match_all, kps.xy,
+                                             kps.desc, kps.valid)
+            with trace.span("resolve.ransac"):
+                hyp = ransac.sample_hypotheses(ok, NUM_HYP, self.generator)
+                inl = ps.launch(("inliers all",), _inliers, p1, p2, ok, hyp)
             for name, t in zip(fields, (p1, p2, ok, inl, dist)):
                 fetch.get(name, t)
             if cfg.alphas[3] > 0.0:
                 kps = Keypoints(*(t.clone() for t in kps))
-            host = fetch.wait()
+            with trace.span("resolve.fetch"):
+                host = fetch.wait()
             p1b, p2b, okb, inlb, distb = (host[name] for name in fields)
         salience = host["salience"]
+        with trace.span("resolve.filter"):
+            matches, temporal = self._filter(p1b, p2b, okb, inlb, distb, kps)
+        if matches is None:
+            return None
+        with trace.span("resolve.solve"):
+            verts = self.solver.solve(matches, temporal=temporal,
+                                      salience=salience)
+            disp = coarse_backward_disp(verts, geom.layout.band_h,
+                                        geom.layout.band_w)
+        if cfg.visualize_matches or cfg.visualize_mesh:
+            self._dump_viz(bands, matches, verts)
+        return disp
 
+    def _filter(self, p1b, p2b, okb, inlb, distb, kps):
+        """The seams' matches after the rig filters and the consensus trim
+        (meshwarper.cpp:930-941), and the temporal matches: (matches,
+        temporal), or (None, None) when no seam has usable matches."""
+        cfg, c = self.cfg, self.geom.num_images
         matches: List[Optional[CamMatches]] = []
         for idx in range(c):
             dst = (idx - 1) % c
@@ -448,7 +486,7 @@ class MeshPipeline:
             matches.append(CamMatches(p1=p1[sel], p2=p2[sel], dst=dst))
 
         if all(m is None for m in matches):
-            return None
+            return None, None
 
         # temporal same-camera matches against the previous solve's
         # keypoints (featurefinder.cpp:110-170); off unless alphas[3] > 0
@@ -473,13 +511,7 @@ class MeshPipeline:
                         temporal[idx] = TemporalMatches(pt=pt[near],
                                                         pp=pp[near])
             self._prev_kps = cur
-
-        verts = self.solver.solve(matches, temporal=temporal,
-                                  salience=salience)
-        if cfg.visualize_matches or cfg.visualize_mesh:
-            self._dump_viz(bands, matches, verts)
-        return coarse_backward_disp(verts, geom.layout.band_h,
-                                    geom.layout.band_w)
+        return matches, temporal
 
     def _dump_viz(self, bands, matches, verts):
         """Write match / mesh debug images for this recalibration under

@@ -32,6 +32,22 @@ Two pipeline modes (cfg.pipeline_mode, default "auto"):
 "auto" picks inline on small hosts (<= 2 cores) or when consumption is
 light, threaded otherwise.
 
+Traced (``utils/trace``; on from the start of run() when cfg.trace_dir
+is set), the Runner numbers each frame set when it acquires it, and the
+id travels with it through the staged queue, the results queue and the
+consumer. Spans: in the stager thread ``acquire`` and ``stage`` (with
+the Stitcher's ``stage.pin`` and ``stage.h2d``); ``queue.staged`` (push
+-> pop); in the step loop ``step.wait`` (the pop), ``step.launch`` (the
+stitch_out call, with the Stitcher's ``lock.wait`` and ``replay``) and
+``results.push``, a child of ``queue.results`` (push -> the consumer's
+pop); in the consumer ``consume``, with ``consume.sync`` or
+``download`` (the Stitcher's ``download.alloc`` and ``download.wait``)
+and ``sink``; in the re-solve thread ``resolve`` (the stages of
+recalibrate_mesh inside) and ``resolve.swap``. The StageTimers
+(``timers``: acquire, upload, launch, output), ``swap_ms`` and the
+"Rewarp" log read the same spans, timed whether the tracer records or
+not.
+
 Run: python -m video_stitcher_tpu_torch.pipeline.runner --config cfg.json
 (the same command line as the JAX package's runner). It runs on the card
 and raises on a host without CUDA.
@@ -39,6 +55,7 @@ and raises on a host without CUDA.
 
 from __future__ import annotations
 
+import functools
 import threading
 import time
 from typing import Optional
@@ -46,7 +63,7 @@ from typing import Optional
 from video_stitcher_tpu_torch.config import StitcherConfig
 from video_stitcher_tpu_torch.io_plane.queues import FrameQueue
 from video_stitcher_tpu_torch.utils.timing import StageTimers, FpsMeter
-from video_stitcher_tpu_torch.utils import log
+from video_stitcher_tpu_torch.utils import log, trace
 
 
 class Runner:
@@ -97,6 +114,7 @@ class Runner:
         #: per-swap milliseconds spent inside swap_state during interp
         #: animations (the new state's tile plan + lock hold) —
         #: attributes swap-window stalls separately from solve contention
+        #: (the ``resolve.swap`` spans)
         self.swap_ms: list = []
         self.results = FrameQueue(max_size=cfg.results_max_size,
                                   drop_oldest=cfg.clear_buffers)
@@ -111,7 +129,19 @@ class Runner:
         #: the threads run() started; each has ended or is ending once
         #: run() returns (their joins are bounded)
         self.threads: list = []
-        self.timers = StageTimers(["acquire", "upload", "stitch", "output"])
+        #: mean host times of the stages, from their spans: "acquire"
+        #: (source.get_frames), "upload" (``stage``: stage_frames),
+        #: "launch" (``step.launch``: the stitch_out call, which queues the
+        #: step's replay and returns; the step's completion is what the
+        #: consumer's latency stamps see) and "output" (``consume``)
+        self.timers = StageTimers(["acquire", "upload", "launch", "output"])
+        self._into = {k: functools.partial(self.timers.add, k)
+                      for k in self.timers.sums}
+        #: the next frame set's id (trace spans)
+        self._next_id = 0
+        #: cfg.trace_dir: the profiler runs; the traced stretch's end
+        self._tracing = False
+        self._trace_until: Optional[int] = None
         self.fps = FpsMeter(period=30)
         self.frames_done = 0
         self.recalibs_done = 0
@@ -198,11 +228,13 @@ class Runner:
             t0 = time.perf_counter()
             try:
                 old_state = self.stitcher.state
-                if self.stitcher.recalibrate_mesh(frames):
+                with trace.span("resolve", timed=True) as solve:
+                    ok = self.stitcher.recalibrate_mesh(frames)
+                if ok:
                     self.recalibs_done += 1
                     self.recalib_ts.append(time.perf_counter())
                     log.info("Rewarp: %.0f ms (period %.0f ms)",
-                             (time.perf_counter() - t0) * 1e3,
+                             solve.s * 1e3,
                              (t0 - self._last_recalib_t) * 1e3
                              if self._last_recalib_t else 0.0)
                     self._last_recalib_t = t0
@@ -213,24 +245,36 @@ class Runner:
                         for k in range(1, steps):
                             if self._stop.is_set():
                                 break
-                            t_s = time.perf_counter()
-                            self.stitcher.swap_state(
-                                self.stitcher.interpolate_states(
-                                    old_state, new_state, k / (steps - 1)))
-                            self.swap_ms.append(
-                                (time.perf_counter() - t_s) * 1e3)
+                            with trace.span("resolve.swap",
+                                            into=self._swap_into):
+                                self.stitcher.swap_state(
+                                    self.stitcher.interpolate_states(
+                                        old_state, new_state,
+                                        k / (steps - 1)))
                             time.sleep(0.03)
-                        self.stitcher.swap_state(new_state)
+                        with trace.span("resolve.swap"):
+                            self.stitcher.swap_state(new_state)
             except Exception as e:          # recalib must never kill the loop
                 log.warning("recalibration failed: %s", e)
+
+    def _swap_into(self, seconds: float) -> None:
+        self.swap_ms.append(seconds * 1e3)
 
     # --- consumer (timed.cpp:182-383) -----------------------------------
     def _consume_one(self, item):
         """Consume one stitched frame (shared by the inline loop and the
         threaded consumer): force/await completion, latency stamps,
-        one-time calib.jpg/result.jpg, sink/show/egress, fps meter."""
+        one-time calib.jpg/result.jpg, sink/show/egress, fps meter. The
+        item: (output, the first set's frames or None, the staged stamp,
+        the frame set's id, the results queue's push stamp and span id)."""
+        out_dev, first_frames, t_staged, fid, t_push, qid = item
+        trace.record("queue.results", t_push, trace.stamp(), frame=fid,
+                     thread="queue", sid=qid)
+        with trace.span("consume", frame=fid, into=self._into["output"]):
+            self._consume(out_dev, first_frames, t_staged)
+
+    def _consume(self, out_dev, first_frames, t_staged):
         cfg = self.cfg
-        out_dev, first_frames, t_staged = item
         timeout_s = cfg.sync_timeout_ms / 1e3
         from video_stitcher_tpu_torch.utils.devsync import StallError
         if self.consume_device:
@@ -239,7 +283,8 @@ class Runner:
             if self._consumed % self.sync_every == 0:
                 from video_stitcher_tpu_torch.utils import devsync
                 try:
-                    devsync.read_head(out_dev, timeout_s)
+                    with trace.span("consume.sync"):
+                        devsync.read_head(out_dev, timeout_s)
                 except StallError:
                     # deadline passed: drop this frame's sync and keep
                     # the pipeline alive (networking.cpp:29-37 analog)
@@ -252,8 +297,10 @@ class Runner:
         else:
             from video_stitcher_tpu_torch.utils import devsync
             try:
-                out = devsync.call_deadline(
-                    lambda: self.stitcher.finalize_out(out_dev), timeout_s)
+                with trace.span("download"):
+                    out = devsync.call_deadline(
+                        lambda: self.stitcher.finalize_out(out_dev),
+                        timeout_s)
             except StallError:
                 self.sync_stalls += 1
                 log.warning("output download stalled past %.1fs "
@@ -280,6 +327,17 @@ class Runner:
                 self.sink = VideoFileSink("stitched.avi", out.shape[1],
                                           out.shape[0])
         self._first_frame = False
+        with trace.span("sink"):
+            self._deliver(out)
+        fps = self.fps.tick()
+        if fps is not None:
+            ing = getattr(self, "_ingest", None)
+            log.info("fps: %.2f (%s)%s", fps, self.timers.summary(),
+                     " [" + ing.stats_summary() + "]" if ing else "")
+
+    def _deliver(self, out) -> None:
+        """The output frame to the sink, the window and the egress."""
+        cfg = self.cfg
         if self.sink is not None:
             self.sink.write(out)
         if cfg.show_out:
@@ -293,11 +351,6 @@ class Runner:
                 self.egress.send_frame(out)
             except Exception as e:
                 log.warning("egress failed: %s", e)
-        fps = self.fps.tick()
-        if fps is not None:
-            ing = getattr(self, "_ingest", None)
-            log.info("fps: %.2f (%s)%s", fps, self.timers.summary(),
-                     " [" + ing.stats_summary() + "]" if ing else "")
 
     def _consume_loop(self):
         try:
@@ -328,28 +381,37 @@ class Runner:
         second upload of the same frames)."""
         try:
             while not self._stop.is_set():
-                with self.timers.time("acquire"):
-                    frames = source.get_frames()
+                fid, frames = self._acquire(source)
                 if frames is None:
                     break
-                dev = self._stage_bounded(frames)
+                dev = self._stage_bounded(frames, fid)
                 if dev is None:
                     continue                  # staging stalled; frame dropped
-                self._staged.push((dev, time.perf_counter()), block=True)
+                self._staged.push((dev, time.perf_counter(), fid,
+                                   trace.stamp()), block=True)
         except Exception as e:  # noqa: BLE001 — without the EOF below a
             # dead stager leaves the main loop polling _staged forever
             log.error("stager thread failed: %s — ending run", e)
         finally:
             self._staged.push(Runner._EOF, block=True)
 
-    def _stage_bounded(self, frames):
+    def _acquire(self, source):
+        """(the next frame set's id, the source's next frame set or
+        None), in a span ``acquire``."""
+        fid = self._next_id
+        self._next_id += 1
+        with trace.span("acquire", frame=fid, into=self._into["acquire"]):
+            frames = source.get_frames()
+        return fid, frames
+
+    def _stage_bounded(self, frames, fid=None):
         """stage_frames with the sync deadline: returns the staged device
         array, or None when the H2D path stalled past cfg.sync_timeout_ms
         (logged + counted; the frame set is dropped, the loop lives)."""
         from video_stitcher_tpu_torch.utils import devsync
         timeout_s = self.cfg.sync_timeout_ms / 1e3
         try:
-            with self.timers.time("upload"):
+            with trace.span("stage", frame=fid, into=self._into["upload"]):
                 return devsync.call_deadline(
                     lambda: self.stitcher.stage_frames(
                         frames, slots=self.staging_depth + 1), timeout_s)
@@ -359,21 +421,28 @@ class Runner:
                         "frame set dropped", timeout_s, self.stage_stalls)
             return None
 
-    def _trace_tick(self, tracing: bool) -> bool:
+    def _trace_tick(self) -> None:
         """One step of the device-trace window policy (shared by both
-        pipeline modes): start after the compile frame, stop after
-        cfg.trace_frames traced frames."""
+        pipeline modes): start the profiler after the compile frame, and
+        stamp the end of the traced stretch after cfg.trace_frames traced
+        frames. ``_trace_stop`` stops the profiler once the Runner's
+        threads have ended: stopping torch.profiler while another thread
+        replayed a CUDA graph or recorded an event hung it on an H100."""
         cfg = self.cfg
-        if cfg.trace_dir and not tracing and self.frames_done == 1:
-            from video_stitcher_tpu_torch.utils.trace import start_device_trace
-            start_device_trace(cfg.trace_dir)
-            return True
-        if tracing and self.frames_done >= cfg.trace_frames + 1:
-            from video_stitcher_tpu_torch.utils.trace import stop_device_trace
-            stop_device_trace()
-            log.info("device trace written to %s", cfg.trace_dir)
-            return False
-        return tracing
+        if cfg.trace_dir and not self._tracing and self.frames_done == 1:
+            trace.start_device_trace(cfg.trace_dir)
+            self._tracing = True
+        elif (self._tracing and self._trace_until is None
+              and self.frames_done >= cfg.trace_frames + 1):
+            self._trace_until = time.perf_counter_ns()
+
+    def _trace_stop(self) -> None:
+        """Stop the profiler (the threads have been joined) and write the
+        trace of the stretch ``_trace_tick`` stamped."""
+        if self._tracing:
+            self._tracing = False
+            trace.stop_device_trace(until=self._trace_until)
+            log.info("device trace written to %s", self.cfg.trace_dir)
 
     def _to_rgb_host(self, frames):
         """NV12 [N, H*3/2, W] -> RGB u8 [N, H, W, 3] on the host (one-time,
@@ -431,38 +500,48 @@ class Runner:
                      "no inline meaning; using ring depth 4")
         depth = max(1, cfg.results_max_size or 4)
         ring = collections.deque()
-        tracing = False
         while not self._stop.is_set():
-            with self.timers.time("acquire"):
-                frames = source.get_frames()
+            fid, frames = self._acquire(source)
             if frames is None:
                 log.info("source exhausted")
                 break
-            dev = self._stage_bounded(frames)
+            dev = self._stage_bounded(frames, fid)
             if dev is None:
                 continue                      # staging stalled; frame dropped
             t_staged = time.perf_counter()
             with self._latest_lock:
                 self._latest_frames = dev
-            tracing = self._trace_tick(tracing)
-            with self.timers.time("stitch"):
+            self._trace_tick()
+            with trace.span("step.launch", frame=fid,
+                            into=self._into["launch"]):
                 out = self.stitcher.stitch_out(dev, device=True)
             ring.append((out, dev if self.frames_done == 0 else None,
-                         t_staged))
+                         t_staged, fid, trace.stamp(), trace.new_id()))
             self.frames_done += 1
             if len(ring) >= depth:
-                with self.timers.time("output"):
-                    self._consume_one(ring.popleft())
+                self._consume_one(ring.popleft())
             if self.max_frames and self.frames_done >= self.max_frames:
                 break
         while ring:
             self._consume_one(ring.popleft())
-        if tracing:
-            from video_stitcher_tpu_torch.utils.trace import stop_device_trace
-            stop_device_trace()
 
     # --- main loop -------------------------------------------------------
     def run(self) -> None:
+        """Run the pipeline until the source ends, max_frames or a stop.
+        With cfg.trace_dir the tracer records from here to the end (so the
+        programs captured now hold the step's markers), and the trace it
+        writes covers cfg.trace_frames frames (``_trace_tick``): the
+        profiler records from the second frame to the end of the run."""
+        switch = bool(self.cfg.trace_dir) and not trace.is_on()
+        if switch:
+            trace.enable()
+        try:
+            self._run()
+        finally:
+            if switch:
+                trace.disable()
+
+    def _run(self) -> None:
         cfg = self.cfg
         source = self._make_source()
         self.source_ready.set()
@@ -497,7 +576,8 @@ class Runner:
             raise
 
         if self._use_inline():
-            recalib = threading.Thread(target=self._recalib_loop, daemon=True)
+            recalib = threading.Thread(target=self._recalib_loop, daemon=True,
+                                       name="resolve")
             self.threads = [recalib]
             recalib.start()
             try:
@@ -505,6 +585,7 @@ class Runner:
             finally:
                 self._stop.set()
                 recalib.join(timeout=5)
+                self._trace_stop()
                 source.release()
                 if self.sink is not None:
                     self.sink.release()
@@ -514,34 +595,39 @@ class Runner:
 
         self._staged = FrameQueue(max_size=self.staging_depth,
                                   drop_oldest=False)
-        consumer = threading.Thread(target=self._consume_loop, daemon=True)
-        recalib = threading.Thread(target=self._recalib_loop, daemon=True)
+        consumer = threading.Thread(target=self._consume_loop, daemon=True,
+                                    name="consumer")
+        recalib = threading.Thread(target=self._recalib_loop, daemon=True,
+                                   name="resolve")
         stager = threading.Thread(target=self._stage_loop, args=(source,),
-                                  daemon=True)
+                                  daemon=True, name="stager")
         self.threads = [consumer, recalib, stager]
         consumer.start()
         recalib.start()
         stager.start()
 
-        tracing = False
         try:
             while not self._stop.is_set():
-                item = self._staged.pop(timeout=1.0)
+                with trace.span("step.wait"):
+                    item = self._staged.pop(timeout=1.0)
                 if item is None:
                     continue
                 if item is Runner._EOF:
                     log.info("source exhausted")
                     break
-                frames, t_staged = item
-                tracing = self._trace_tick(tracing)
+                frames, t_staged, fid, t_push = item
+                trace.record("queue.staged", t_push, trace.stamp(),
+                             frame=fid, thread="queue")
+                self._trace_tick()
                 with self._latest_lock:
                     self._latest_frames = frames
-                with self.timers.time("stitch"):
+                with trace.span("step.launch", frame=fid,
+                                into=self._into["launch"]):
                     # asynchronous launches — NO per-frame device sync
                     # here: the consumer forces completion when it
                     # downloads (or syncs) the frame, and the bounded
                     # queues bound how far the launches run ahead. The
-                    # "stitch" stage time is therefore launch cost;
+                    # "launch" stage time is therefore launch cost;
                     # end-to-end completion is what the consumer-side
                     # latency stamps measure.
                     out = self.stitcher.stitch_out(frames, device=True)
@@ -551,16 +637,16 @@ class Runner:
                 # BLOCKS (backpressure bounds how far the launches run
                 # ahead of completion); with clear_buffers the oldest
                 # result drops instead (timed.cpp:141-151 policy)
-                self.results.push((out, frames if self.frames_done == 0
-                                   else None, t_staged),
-                                  block=not cfg.clear_buffers)
+                qid = trace.new_id()
+                with trace.span("results.push", frame=fid, parent=qid):
+                    self.results.push((out, frames if self.frames_done == 0
+                                       else None, t_staged, fid,
+                                       trace.stamp(), qid),
+                                      block=not cfg.clear_buffers)
                 self.frames_done += 1
                 if self.max_frames and self.frames_done >= self.max_frames:
                     break
         finally:
-            if tracing:
-                from video_stitcher_tpu_torch.utils.trace import stop_device_trace
-                stop_device_trace()
             self._stop.set()
             self._staged.close()               # unblock the stager
             self.results.close()
@@ -570,6 +656,7 @@ class Runner:
             # interpreter doesn't tear down under its feet (a C++ exception
             # in a dying daemon thread prints "terminate called" at exit)
             recalib.join(timeout=5)
+            self._trace_stop()
             source.release()
             if self.sink is not None:
                 self.sink.release()

@@ -23,11 +23,19 @@ memory the graph reads. On the CPU a launch runs the same function
 eagerly on the same buffers, so everything but the warm-up and the
 capture runs under the CPU tests. On the card a failed capture or replay
 raises: there is no eager fallback.
+
+Traced (``utils/trace``): a capture is a span ``capture`` with the
+program's name (its time is ``Program.capture_s``). A program set made
+with a `mark` brackets each replay with markers on its stream, outside
+the graph (``<mark>.<step>`` before, ``<mark>.end`` after), while the
+tracer records.
 """
 
 from __future__ import annotations
 
-import time
+import contextlib
+import gc
+import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -36,6 +44,7 @@ from video_stitcher_tpu_torch.calib.state import CalibState
 from video_stitcher_tpu_torch.ops.remap_strips import remap_strips
 from video_stitcher_tpu_torch.ops.resize import keeping_taps
 from video_stitcher_tpu_torch.ops.warp_tiles import TilePlan
+from video_stitcher_tpu_torch.utils import trace
 
 #: (step name and its static arguments, first input's shape, its dtype)
 Key = Tuple[tuple, Tuple[int, ...], torch.dtype]
@@ -131,15 +140,49 @@ class Buffers:
                 self._values[k] = clone_tree(v)
 
 
+#: captures under way (``no_collection``), and whether the collector
+#: ran before the first of them
+_capturing = 0
+_collector_was_on = False
+_capturing_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def no_collection():
+    """Python's cyclic garbage collector held off while a graph is
+    captured. A collection there can free the CUDA graph of a program no
+    longer reachable, and destroying a graph while this thread captures
+    invalidates the capture (cudaErrorStreamCaptureInvalidated, seen on
+    an H100 in the sharded reduction's capture); torch.cuda.graph no
+    longer collects before it captures. The garbage waits for the next
+    collection after the capture."""
+    global _capturing, _collector_was_on
+    with _capturing_lock:
+        if _capturing == 0:
+            _collector_was_on = gc.isenabled()
+            gc.disable()
+        _capturing += 1
+    try:
+        yield
+    finally:
+        with _capturing_lock:
+            _capturing -= 1
+            if _capturing == 0 and _collector_was_on:
+                gc.enable()
+
+
 class Program:
     """One unit of device work: its input buffers (a list of trees),
     `fn(*inputs)` over them and, on the card, the CUDA graph of `fn`
     captured on `stream` with its outputs at fixed addresses."""
 
     def __init__(self, name: str, fn: Callable, inputs: list,
-                 device: torch.device, stream, key=None):
+                 device: torch.device, stream, key=None,
+                 marks: Optional[Tuple[str, str]] = None):
         self.name = name
         self.key = key
+        #: the markers around each replay (utils/trace.mark), or None
+        self.marks = marks
         self.fn = fn
         self.inputs = inputs
         self.device = device
@@ -166,7 +209,11 @@ class Program:
         the program's stream waits for it."""
         if self.stream is None:
             return
-        t0 = time.perf_counter()
+        with trace.span("capture", arg=self.name, timed=True) as span:
+            self._capture()
+        self.capture_s = span.s
+
+    def _capture(self) -> None:
         graph = torch.cuda.CUDAGraph()
         caller = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(caller)
@@ -174,8 +221,9 @@ class Program:
                 keeping_taps(self.kept):
             self._run()
             before = remap_strips.captured
-            with torch.cuda.graph(graph, stream=self.stream,
-                                  capture_error_mode="thread_local"):
+            with no_collection(), torch.cuda.graph(
+                    graph, stream=self.stream,
+                    capture_error_mode="thread_local"):
                 reserved = torch.cuda.memory_reserved(self.device)
                 self.output = self._run()
             self.pool_bytes = torch.cuda.memory_reserved(
@@ -183,7 +231,6 @@ class Program:
         self.k1_launches = remap_strips.captured - before
         self.graph = graph
         caller.wait_stream(self.stream)
-        self.capture_s = time.perf_counter() - t0
 
     def _copy_in(self, inputs) -> None:
         for buf, x in zip(self.inputs, inputs):
@@ -207,8 +254,12 @@ class Program:
         for s in after:
             self.stream.wait_stream(s)
         with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            if self.marks is not None:
+                trace.mark(self.marks[0], self.device)
             self._copy_in(inputs)
             self.graph.replay()
+            if self.marks is not None:
+                trace.mark(self.marks[1], self.device)
         if not own:
             for t in leaves(list(inputs)):
                 if t.is_cuda:
@@ -230,9 +281,11 @@ def key_name(key: Key) -> str:
 class ProgramSet:
     """Programs keyed by (step, first input's shape and dtype) on one
     device and one stream of their own, each built and captured at its
-    key's first use (``launch``) or ahead of it (``prepare``)."""
+    key's first use (``launch``) or ahead of it (``prepare``). With
+    `mark`, each replay is bracketed by markers (``<mark>.<step>``,
+    ``<mark>.end``) while the tracer records."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, mark: Optional[str] = None):
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         self.device = device
@@ -241,6 +294,7 @@ class ProgramSet:
         self.programs: Dict[Key, Program] = {}
         #: captures per key name over this object's life
         self.captures: Dict[str, int] = {}
+        self.mark = mark
 
     def prepare(self, step_key: tuple, fn: Callable, *inputs,
                 share: bool = False) -> Program:
@@ -260,8 +314,11 @@ class ProgramSet:
                 return clone_tree(x, self.device)
             bufs = on_stream(self.stream,
                              lambda: [buffer(x) for x in inputs], inputs)
+            marks = None if self.mark is None else (
+                f"{self.mark}.{step_key[0]}".replace(" ", "_"),
+                f"{self.mark}.end")
             prog = Program(key_name(key), fn, bufs, self.device,
-                           self.stream, key)
+                           self.stream, key, marks)
             prog.capture()
             self.programs[key] = prog
             self.captures[prog.name] = self.captures.get(prog.name, 0) + 1

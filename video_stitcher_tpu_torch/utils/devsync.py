@@ -35,6 +35,8 @@ from typing import Any, Callable
 
 import numpy as np
 
+from video_stitcher_tpu_torch.utils import trace
+
 #: max concurrently-outstanding stalled workers before call_deadline
 #: fails fast (link considered wedged; each stalled worker is a leaked
 #: daemon thread until its blocking call eventually returns)
@@ -112,7 +114,8 @@ def call_deadline(fn: Callable[[], Any], timeout_s: float) -> Any:
         worker = _idle.pop() if _idle else None
     if worker is None:
         worker = _Worker()
-    worker.submit(fn, box, done)
+    # a span the worker opens nests under the caller's (utils/trace)
+    worker.submit(trace.carry(fn), box, done)
     if not done.wait(timeout_s):
         with _lock:
             if box["status"] == "running":

@@ -27,8 +27,13 @@ class StageTimers:
         try:
             yield
         finally:
-            self.sums[stage] += time.perf_counter() - t0
-            self.counts[stage] += 1
+            self.add(stage, time.perf_counter() - t0)
+
+    def add(self, stage: str, seconds: float) -> None:
+        """Count one run of `stage` that took `seconds` (a span's time:
+        the Runner's stages are utils/trace spans, ``span(into=)``)."""
+        self.sums[stage] += seconds
+        self.counts[stage] += 1
 
     def mean_ms(self, stage: str) -> float:
         c = self.counts[stage]
