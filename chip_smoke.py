@@ -67,6 +67,14 @@ its plain version on one shard's maps, the step's and the reduction's
 times and one sharded swap. Phase "int16": stitch_int16 through K1 in
 the reference's integer band against the f32 stitch of the same state,
 the integer pyramids and blend on the card against the host, its time.
+Phase "blend": the blend's kernels (blend/levels.py: down, lap_place and
+collapse, csrc/blend_levels.cu) at the rig's shapes in bf16 and f32, each
+against its plain version level by level and the whole blend against the
+chain of plain pyramid helpers it replaced, at max abs 0; each kernel's
+device ms, bound and plain ms; the blend's launches per replay of
+stitch_out, and a profiled replay captured with the tracer's markers,
+whose blend stage (step.blend to step.output) runs the blend kernels
+alone.
 Phase "helpers": the JAX package's public helpers that the other phases
 do not drive (the f64 host band maps against the card's, the host entry
 compose_fused_maps, the Laplacian round trip, the HWC wrappers and the
@@ -210,22 +218,31 @@ def kernel_ms(fn, reps=REPS):
     return total / 1e3
 
 
-def device_sum_ms(fn, reps=REPS):
+def device_sum_ms(fn, reps=REPS, launches=None):
     """Device time of all the kernels one call of fn launches: the sum of
     torch.profiler's device entries over reps calls, over reps. For a
     call whose launches of one kernel differ in size (one add per
     pyramid level), where kernel_ms's median entry would stand for the
-    middle level only."""
+    middle level only. With `launches` (the kernels one call launches),
+    a profile that lost entries is taken again, up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+        if launches is None or len(us) == launches * reps:
+            break
+        log(f"  the profiler saw {len(us)} device entries of "
+            f"{launches * reps}; profiled again")
+    else:
+        raise RuntimeError(f"the profiler saw {len(us)} device entries of "
+                           f"{launches * reps}, three times")
     if not us:
         raise RuntimeError(f"no device entries for {reps} calls")
     return sum(us) / reps / 1e3
@@ -267,16 +284,22 @@ def luma(rgb):
         + 0.097906 * x[..., 2] + 16.0
 
 
-def device_profile(fn, reps=5):
+def device_profile(fn, reps=5, by_name=False):
     """torch.profiler over reps calls of fn: (share of the wall time the
     card spent in kernels, kernels per call, the top kernels by device
-    time). The profiler's own cost lengthens the wall time, so the share
-    is a lower bound."""
-    from torch.profiler import ProfilerActivity, profile
+    time), and with `by_name` the kernels per call by full name. The
+    profiler's own cost lengthens the wall time, so the share is a lower
+    bound."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # a warm-up step, whose entries are dropped: the first few device
+    # entries after the profiler starts go missing (an H100, 5 a profile)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
@@ -284,15 +307,20 @@ def device_profile(fn, reps=5):
         wall_us = (time.perf_counter() - t0) * 1e6
     from torch.autograd import DeviceType
     # device-side entries only: an operator's entry repeats the device time
-    # of the kernels it launched
+    # of the kernels it launched, and the step's annotation on the device
+    # spans its kernels
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
+               and e.self_device_time_total > 0
+               and not e.key.startswith("ProfilerStep")]
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
-    return (busy_us / wall_us, sum(e.count for e in kernels) / reps,
-            [(e.key[:60], e.self_device_time_total / reps / 1e3, e.count
-              // reps) for e in top])
+    out = (busy_us / wall_us, sum(e.count for e in kernels) / reps,
+           [(e.key[:60], e.self_device_time_total / reps / 1e3, e.count
+             // reps) for e in top])
+    if by_name:
+        out += ({e.key: e.count / reps for e in kernels},)
+    return out
 
 
 def scene_psnr(pano, scene, valid, of=lambda x: x):
@@ -926,6 +954,9 @@ def graph_cell(name, st, frames, nv12, dev) -> dict:
     API calls that launch work per call, the card's busy share, a swap's
     cost, and each key's capture time and pool. Returns metrics."""
     from video_stitcher_tpu_torch.ops.remap_strips import remap_strips
+    from video_stitcher_tpu_torch.ops.resize import resize_planar
+    from video_stitcher_tpu_torch.pipeline.stitcher import (
+        _pack_u8_hwc, blend_f32, warp_bands)
     x_rgb = torch.as_tensor(frames, device=dev)
     x_nv = torch.as_tensor(nv12, device=dev)
     keys = {"stitch RGB": (st.stitch, x_rgb, False),
@@ -989,21 +1020,54 @@ def graph_cell(name, st, frames, nv12, dev) -> dict:
               for c in graphed),
           f"{name}: stitch, stitch_nv12 and stitch_out each make one "
           f"cudaGraphLaunch and no kernel launch per call")
-    check(kernel_launches(calls["eager stitch_out RGB"]) > 100,
-          f"{name}: the eager step launches "
-          f"{kernel_launches(calls['eager stitch_out RGB'])} kernels a call")
-    busy = {}
-    for label, fn in (("eager", lambda: eager_step(st, x_rgb, True)),
-                      ("graph", lambda: st.stitch_out(x_rgb,
-                                                      device=True))):
-        share, per_call, top = device_profile(fn)
-        busy[label] = {"share": share, "kernels_per_call": per_call}
-        log(f"  {name} stitch_out RGB loop under torch.profiler, {label}: "
-            f"card busy {share:.4f}, {per_call:.1f} kernels a call; top "
-            f"{[(k, round(ms, 4)) for k, ms, _ in top[:3]]}")
-    check(busy["graph"]["kernels_per_call"] > 100,
-          f"{name}: the profiler sees the replayed graph's kernels "
-          f"({busy['graph']['kernels_per_call']:.1f} a call)")
+    # the eager step's launches stage by stage: the warp (the source prep
+    # and K1), the blend (its kernels, blend/levels.py) and the output
+    # (resize and pack), each alone
+    prog = next(p for p in st.programs.programs.values()
+                if p.key[0][0] == "stitch_out" and p.key[1] == x_rgb.shape)
+    state, geom, plan = st._snapshot()
+    bands = warp_bands(x_rgb, state, geom, plan)
+    pano = blend_f32(bands, state, geom)
+    parts = {stage: kernel_launches(api_calls(fn)) for stage, fn in (
+        ("warp", lambda: warp_bands(x_rgb, state, geom, plan)),
+        ("blend", lambda: blend_f32(bands, state, geom)),
+        ("output", lambda: _pack_u8_hwc(resize_planar(
+            pano, *st._out_size(geom)))))}
+    eager_n = kernel_launches(calls["eager stitch_out RGB"])
+    nb = geom.layout.num_bands
+    check(eager_n == sum(parts.values()) and parts["warp"] > prog.k1_launches
+          == 1 and parts["blend"] == prog.blend_launches == 3 * nb + 1
+          and parts["output"] > 0,
+          f"{name}: the eager step launches {eager_n} kernels a call, its "
+          f"stages' own {parts}: the source prep and K1 "
+          f"({prog.k1_launches} a replay), the blend's {3 * nb + 1} "
+          f"({prog.blend_launches} a replay), the resize and pack")
+    # the profiler loses a graph replay's entries now and then (an H100,
+    # 1 profile in 3): such a profile is taken again, at most twice
+    want = {"K1": prog.k1_launches, "blend": prog.blend_launches}
+    for _ in range(3):
+        busy, named = {}, {}
+        for label, fn in (("eager", lambda: eager_step(st, x_rgb, True)),
+                          ("graph", lambda: st.stitch_out(x_rgb,
+                                                          device=True))):
+            share, per_call, top, named[label] = device_profile(
+                fn, by_name=True)
+            busy[label] = {"share": share, "kernels_per_call": per_call}
+            log(f"  {name} stitch_out RGB loop under torch.profiler, "
+                f"{label}: card busy {share:.4f}, {per_call:.1f} kernels a "
+                f"call; top {[(k, round(ms, 4)) for k, ms, _ in top[:3]]}")
+        seen = {kind: sum(n for k, n in named["graph"].items() if mark in k)
+                for kind, mark in (("K1", "RemapGain"), ("blend", "blend_"))}
+        whole = busy["graph"]["kernels_per_call"] >= busy["eager"][
+            "kernels_per_call"] and seen == want
+        if whole:
+            break
+        log(f"  {name}: K1 and the blend by name {seen}; profiled again")
+    check(whole and all(0 < b["share"] <= 1 for b in busy.values()),
+          f"{name}: the profiler sees the replayed graph's kernels: "
+          f"{busy['graph']['kernels_per_call']:.1f} a call against the "
+          f"eager step's {busy['eager']['kernels_per_call']:.1f}, K1 and "
+          f"the blend's by name {seen}, busy shares in (0, 1]")
     swap_ms = sync_ms(lambda: st.swap_state(old), reps=5)
     before = remap_strips.launches
     st.stitch_out(x_rgb, device=True)
@@ -2787,6 +2851,205 @@ def int16_phase(st, frames, scene, valid, dev):
         "stitch_int16_global_ms": int16_global_ms}
 
 
+BLEND_SOURCE = "video_stitcher_tpu_torch/csrc/blend_levels.cu"
+BLEND_REPLACES = ("none: the JAX package leaves the blend to XLA's fusion "
+                  "of blend/multiband.py and ops/pyramid.py")
+
+
+def blend_chain(bands, weight_pyr, lay, precision, valid):
+    """The blend as the port ran it before its kernels: the plain pyramid
+    helpers (laplacian_pyramid, the product with the weights, place_bands,
+    the collapse through pyr_up), one launch per tap, product and sum."""
+    from video_stitcher_tpu_torch.blend.multiband import place_bands
+    from video_stitcher_tpu_torch.ops.pyramid import (
+        laplacian_pyramid, pyr_up, storage_dtype)
+    dt = storage_dtype(precision)
+    lap = laplacian_pyramid(bands, lay.num_bands, precision)
+    acc = [place_bands(lap[lvl] * weight_pyr[lvl].to(dt), lay, lvl)
+           for lvl in range(lay.num_bands + 1)]
+    out = acc[-1]
+    for lvl in range(lay.num_bands - 1, -1, -1):
+        out = acc[lvl].to(torch.float32) + pyr_up(
+            out, acc[lvl].shape[-2], acc[lvl].shape[-1], precision,
+            out_dtype=torch.float32)
+        if precision == "bf16" and lvl > 0:
+            out = out.to(dt)
+    return acc, out.to(torch.float32) * valid[None]
+
+
+def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest |a - b| (inf for tensors of another shape or dtype)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return float("inf")
+    return float((a.float() - b.float()).abs().max())
+
+
+def tensor_bytes(*ts) -> int:
+    """Bytes of the tensors given (None counts 0)."""
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def blend_stage_kernels(st, frames, dev):
+    """The device kernels of one profiled replay of stitch_out between its
+    step.blend and step.output markers, in order: the programs of a new
+    stitcher on st's state, captured with the tracer on so that they hold
+    the step's markers."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from video_stitcher_tpu_torch import Stitcher
+    from video_stitcher_tpu_torch.utils import trace
+    x = torch.as_tensor(frames, device=dev)
+    trace.enable()
+    try:
+        traced = Stitcher(st.cfg, device=dev)
+        traced._install(st.geom, st.state)
+        traced.stitch_out(x, device=True)              # the capture
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            traced.stitch_out(x, device=True)
+            torch.cuda.synchronize()
+        names = trace.mark_names()
+    finally:
+        trace.disable()
+        trace.clear()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    marks = {}
+    for i, e in enumerate(events):
+        m = trace.MARK_KERNEL.search(e.name)
+        if m:
+            marks.setdefault(names.get(int(m.group(1))), i)
+    lo, hi = marks.get("step.blend"), marks.get("step.output")
+    if lo is None or hi is None or hi < lo:
+        return None
+    return [e.name for e in events[lo + 1:hi]]
+
+
+def blend_phase(st, frames, dev):
+    """Phase "blend": the blend's kernels (blend/levels.py,
+    csrc/blend_levels.cu) at the rig's shapes in bf16 and f32. Each kernel
+    against its plain version level by level on the same inputs, and the
+    blend through the kernels against the chain the port ran before them,
+    all at max abs 0; each kernel's device ms (all its levels of one
+    frame) against its bound and its plain version's ms; the blend's
+    launches per replay of stitch_out, and the kernels of a profiled,
+    marked replay between step.blend and step.output: the blend's alone.
+    Returns (kernel entries, metrics)."""
+    from video_stitcher_tpu_torch.blend import levels
+    from video_stitcher_tpu_torch.blend.multiband import (
+        collapse_levels, weighted_levels)
+    from video_stitcher_tpu_torch.pipeline.stitcher import warp_bands
+    log("phase blend")
+    lay, nb = st.geom.layout, st.geom.layout.num_bands
+    bands = warp_bands(torch.as_tensor(frames, device=dev), st.state,
+                       st.geom, st.plan)
+    wp, valid = st.state.weight_pyr, st.state.valid_mask
+    log(f"  bands {tuple(bands.shape)}, panorama [3, {lay.band_h}, "
+        f"{lay.pano_w}], {nb} bands, corners {lay.corners}")
+    entries = {name: {"name": f"blend {name}", "route": "cuda",
+                      "source": BLEND_SOURCE, "replaces": BLEND_REPLACES,
+                      "max_abs_err": 0.0, "by_precision": {}}
+               for name in ("down", "lap_place", "collapse")}
+    metrics = {}
+    for precision in ("bf16", "highest"):
+        gauss = [bands]
+        for _ in range(nb):
+            gauss.append(levels.down_plain(gauss[-1], precision))
+        lap_args = [(gauss[lvl], gauss[lvl + 1] if lvl < nb else None,
+                     wp[lvl], lay, lvl, None, precision)
+                    for lvl in range(nb + 1)]
+        acc = [levels.lap_place_plain(*a) for a in lap_args]
+        outs = [acc[-1]]
+        for lvl in range(nb - 1, -1, -1):
+            outs.insert(0, levels.collapse_plain(acc[lvl], outs[0], precision,
+                                                 lvl == 0, valid))
+        col_args = [(acc[lvl], outs[lvl + 1], precision, lvl == 0, valid)
+                    for lvl in range(nb)]
+        err = {
+            "down": max(max_abs(levels.down(g, precision), n) for g, n in
+                        zip(gauss[:-1], gauss[1:])),
+            "lap_place": max(max_abs(levels.lap_place(*a), p)
+                             for a, p in zip(lap_args, acc)),
+            "collapse": max(max_abs(levels.collapse(*a), p)
+                            for a, p in zip(col_args, outs))}
+        acc_k = weighted_levels(bands, wp, lay, precision)
+        pano_k = collapse_levels(acc_k, precision, valid)
+        acc_c, pano_c = blend_chain(bands, wp, lay, precision, valid)
+        d_levels = max(max_abs(a, c) for a, c in zip(acc_k, acc_c))
+        d_pano = max_abs(pano_k, pano_c)
+        torch.cuda.synchronize()
+        for name, e in err.items():
+            check(e == 0.0, f"blend {name} ({precision}) equals its plain "
+                  f"version at every level: max abs {e}")
+        check(d_levels == 0.0 and d_pano == 0.0,
+              f"the blend through the kernels ({precision}) equals the "
+              f"plain chain: levels max abs {d_levels}, panorama {d_pano}")
+        byts = {
+            "down": sum(tensor_bytes(g, n)
+                        for g, n in zip(gauss[:-1], gauss[1:])),
+            "lap_place": sum(tensor_bytes(a[0], a[1], a[2], p)
+                             for a, p in zip(lap_args, acc)),
+            "collapse": sum(tensor_bytes(a[0], a[1], a[4] if a[3] else None,
+                                         o) for a, o in zip(col_args, outs))}
+        runs = {
+            "down": (lambda: [levels.down(g, precision) for g in gauss[:-1]],
+                     lambda: [levels.down_plain(g, precision)
+                              for g in gauss[:-1]]),
+            "lap_place": (lambda: [levels.lap_place(*a) for a in lap_args],
+                          lambda: [levels.lap_place_plain(*a)
+                                   for a in lap_args]),
+            "collapse": (lambda: [levels.collapse(*a) for a in col_args],
+                         lambda: [levels.collapse_plain(*a)
+                                  for a in col_args])}
+        for name, (kernel, plain) in runs.items():
+            launches = len(kernel())
+            ms = device_sum_ms(kernel, launches=launches)
+            bound = bound_ms(byts[name], 0.0, F32_FLOPS)[0]
+            row = {"ms": ms, "call_ms": event_ms(kernel),
+                   "plain_ms": event_ms(plain), "bound_ms": bound,
+                   "bound_by": "bytes", "bytes": byts[name],
+                   "share": bound / ms, "max_abs_err": err[name],
+                   "launches_per_frame": launches}
+            entries[name]["by_precision"][precision] = row
+            entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"],
+                                               err[name])
+            log(f"  {name} ({precision}): {ms:.4f} ms on the card alone "
+                f"({row['call_ms']:.4f} ms per frame's calls, "
+                f"{row['launches_per_frame']} launches), bound "
+                f"{bound:.4f} ms ({byts[name]} bytes), share "
+                f"{row['share']:.3f}; plain {row['plain_ms']:.4f} ms")
+        blend = lambda: collapse_levels(  # noqa: E731
+            weighted_levels(bands, wp, lay, precision), precision, valid)
+        metrics[precision] = {
+            "blend_ms": device_sum_ms(blend, launches=3 * nb + 1),
+            "blend_call_ms": event_ms(blend),
+            "chain_ms": event_ms(lambda: blend_chain(bands, wp, lay,
+                                                     precision, valid)),
+            "bound_ms": bound_ms(sum(byts.values()), 0.0, F32_FLOPS)[0]}
+        log(f"  the blend ({precision}): {metrics[precision]['blend_ms']:.4f}"
+            f" ms on the card alone, bound "
+            f"{metrics[precision]['bound_ms']:.4f} ms; the chain it "
+            f"replaced {metrics[precision]['chain_ms']:.4f} ms")
+    step = [p for p in st.programs.programs.values()
+            if p.key[0][0] == "stitch_out"]
+    per_replay = [p.blend_launches for p in step]
+    log(f"  blend launches per replay of stitch_out: {per_replay}")
+    check(bool(step) and all(n == 3 * nb + 1 for n in per_replay),
+          f"every stitch_out program replays the blend's {3 * nb + 1} "
+          f"kernel launches")
+    stage = blend_stage_kernels(st, frames, dev)
+    log(f"  a marked replay's kernels from step.blend to step.output: "
+        f"{stage}")
+    check(stage is not None and len(stage) == 3 * nb + 1 and all(
+        "blend_" in k and "index" not in k for k in stage),
+        "the blend stage of a replay runs the blend kernels alone (no "
+        "index_select, multiply or add)")
+    metrics.update(stitch_out_blend_launches=per_replay,
+                   blend_stage_kernels=stage)
+    return list(entries.values()), metrics
+
+
 MAP_HOST_PX = 0.01     # card band maps vs the f64 host build
                        # (tests/test_geometry.py:110-130)
 FUSED_ATOL_PX = 1e-3   # compose_fused_maps vs compose_fused_maps_device
@@ -3039,6 +3302,7 @@ def main() -> int:
 
 def run(cfg, dev, cfg4, small4) -> int:
     from video_stitcher_tpu_torch import Stitcher, StitcherConfig, _build
+    from video_stitcher_tpu_torch.blend import levels
     from video_stitcher_tpu_torch.blend.multiband import blend_bands
     from video_stitcher_tpu_torch.calib.calibration import plan_geometry
     from video_stitcher_tpu_torch.ops.color import rgb_to_nv12
@@ -3051,6 +3315,10 @@ def run(cfg, dev, cfg4, small4) -> int:
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
+
+    def blend_snap():
+        """The blend kernels' launches so far: down, lap_place, collapse."""
+        return [k.launches for k in levels.KERNELS]
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {kind} count {torch.cuda.device_count()}")
@@ -3106,13 +3374,19 @@ def run(cfg, dev, cfg4, small4) -> int:
         return out
     st.recalibrate_mesh = timed_solve      # calibrate's first mesh solve
     remap_strips.launches = 0
-    counts = []
+    for k in levels.KERNELS:
+        k.launches = 0
+    counts, blend_counts = [], []
 
     def counted(fn, *args, **kw):
         before, caps = remap_strips.launches, captures(st)
+        blend_before = [(k.launches, k.captured) for k in levels.KERNELS]
         out = fn(*args, **kw)
         counts.append(remap_strips.launches - before
                       - (captures(st) - caps))
+        # a capture's warm-up launches what the capture records
+        blend_counts.append([k.launches - n - (k.captured - c) for k, (n, c)
+                             in zip(levels.KERNELS, blend_before)])
         return out
 
     t0 = time.perf_counter()
@@ -3121,6 +3395,7 @@ def run(cfg, dev, cfg4, small4) -> int:
     calib_s = time.perf_counter() - t0
     del st.recalibrate_mesh
     calib_launches = remap_strips.launches
+    blend_calib = blend_snap()
     log(f"  calibrate {calib_s:.3f} s (first mesh solve "
         f"{sum(mesh_s):.3f} s), K1 launches {calib_launches}")
     check(len(mesh_s) == int(cfg.enable_local) and calib_launches == len(
@@ -3142,6 +3417,18 @@ def run(cfg, dev, cfg4, small4) -> int:
           "counted as its launch), plus once per capture's warm-up")
     check(main_launches == len(counts) + main_caps + calib_launches > 0,
           "the main path ran through K1")
+    # down and collapse once a level below the top, lap_place once a level,
+    # per frame set (stitch_batch's two sets last)
+    nb = lay.num_bands
+    want = [[sets * nb, sets * (nb + 1), sets * nb]
+            for sets in [1] * (len(blend_counts) - 1) + [2]]
+    blend_at = [("stitch*", blend_snap())]
+    log(f"  blend launches (down, lap_place, collapse) on the main path: "
+        f"{blend_at[0][1]} (calibrate {blend_calib}, per stitch* call "
+        f"{blend_counts} besides the warm-ups before the captures)")
+    check(blend_counts == want, f"the blend's kernels launched {nb}, "
+          f"{nb + 1} and {nb} times a frame set in every stitch* call (a "
+          f"replay's counted as its launches)")
 
     # ---- what came out ------------------------------------------------
     log("phase results")
@@ -3299,21 +3586,30 @@ def run(cfg, dev, cfg4, small4) -> int:
         f"call), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms on the "
         f"card alone (max abs vs K1 {lib_err:.3g}); bound {k1_bound:.4f} "
         f"ms by {k1_by} ({nbytes} bytes); calibrate {calib_s:.3f} s")
+    blend_at.append(("results and times", blend_snap()))
+    blend_entries, blend_metrics = blend_phase(st, frames, dev)
+    blend_at.append(("blend", blend_snap()))
     helper_metrics = helpers_phase(st, frames, nv12, pano_f32, dev)
     entry_launches, entry_k1_err, entry_metrics = entries_phase(cfg, frames,
                                                                 dev)
+    blend_at.append(("entries", blend_snap()))
     shard_launches, shard_k1_err, shard_metrics = shard_phase(
         st, cfg, frames, frames2, dev)
+    blend_at.append(("shard", blend_snap()))
     int16_launches, int16_metrics = int16_phase(st, frames, scene, valid,
                                                 dev)
     k2_entry, k2_metrics = k2_phase(st, frames, scene, valid, dev)
+    blend_at.append(("int16 and K2", blend_snap()))
     pw_metrics, pw_entry, st4, nv12_4, frames4 = prewarp_phase(cfg4, dev,
                                                                small4)
+    blend_at.append(("prewarp", blend_snap()))
     graph_metrics = graph_phase(st, cfg, frames, nv12, st4, frames4, nv12_4,
                                 dev)
     del frames4
+    blend_at.append(("graph", blend_snap()))
     prog_launches, prog_metrics = programs_phase(st, cfg, frames, frames2,
                                                  nv12, dev)
+    blend_at.append(("programs", blend_snap()))
     # every capture from here on: the thread it ran on
     from video_stitcher_tpu_torch.pipeline.step_graph import Program
     capture, threads_seen = Program.capture, []
@@ -3325,7 +3621,9 @@ def run(cfg, dev, cfg4, small4) -> int:
     try:
         runner_launches, runner_metrics = runner_phase(
             st, cfg, frames, frames2, st4, nv12_4)
+        blend_at.append(("runner", blend_snap()))
         live_launches, live_metrics = live_phase(st, cfg, frames, frames2)
+        blend_at.append(("live", blend_snap()))
     finally:
         Program.capture = capture
     off_main = [t for t in threads_seen if t[0] != "MainThread"]
@@ -3352,7 +3650,15 @@ def run(cfg, dev, cfg4, small4) -> int:
         "runner": runner_metrics, "shard": shard_metrics,
         "int16": int16_metrics, "helpers": helper_metrics,
         "entries": entry_metrics, "live": live_metrics,
-        "graph": graph_metrics, "programs": prog_metrics}}))
+        "graph": graph_metrics, "programs": prog_metrics,
+        "blend": blend_metrics}}))
+    for i, entry in enumerate(blend_entries):
+        entry["launches"] = blend_at[0][1][i]
+        entry["launches_by_path"] = {
+            "calibrate": blend_calib[i],
+            "stitch*": sum(c[i] for c in blend_counts),
+            **{name: at[i] - prev[i] for (_, prev), (name, at)
+               in zip(blend_at, blend_at[1:])}}
 
     log(json.dumps({"kernels": [{
         "name": "K1 remap_gain", "route": "cuda", "source": K1_SOURCE,
@@ -3374,7 +3680,7 @@ def run(cfg, dev, cfg4, small4) -> int:
                              "live": live_launches,
                              "programs": prog_launches},
         "prewarp_f32_source": pw_entry},
-        k2_entry]}))
+        k2_entry, *blend_entries]}))
     log(card)
     if FAILED:
         print(f"chip_smoke: {len(FAILED)} checks failed: {FAILED}",

@@ -5,8 +5,10 @@ MultiBandBlender, sources/modules/stitching/src/blenders.cpp:219-853): all
 cameras are one tensor [N, C, bandH, bandW] on a static ``BandLayout``; the
 seam weight pyramids are normalized once at calibration; each level's
 contributions are summed into the panorama at static corners, with ring
-wraparound as at most two slices per camera. ``blend_bands_int16`` is the
-reference's 16S integer blend, a parity twin off the production path.
+wraparound as at most two slices per camera. On the card a frame's blend
+(``weighted_levels``, ``collapse_levels``) runs as the kernels of
+``blend/levels.py``. ``blend_bands_int16`` is the reference's 16S integer
+blend, a parity twin off the production path.
 """
 
 from __future__ import annotations
@@ -16,10 +18,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from video_stitcher_tpu_torch.blend.levels import collapse, down, lap_place
 from video_stitcher_tpu_torch.geometry.cylindrical import BandLayout
-from video_stitcher_tpu_torch.ops.pyramid import (
-    gaussian_pyramid, laplacian_pyramid, pyr_up, storage_dtype,
-)
+from video_stitcher_tpu_torch.ops.pyramid import gaussian_pyramid
 from video_stitcher_tpu_torch.ops.pyramid_int import (
     laplacian_pyramid_i16, pyr_up_i16,
 )
@@ -50,15 +51,22 @@ def _segments(corner: int, band_w: int, pano_w: int, wrap: bool):
     return [(c, 0, first), (0, first, band_w - first)]
 
 
+def _placement(layout: BandLayout, level: int, corners=None):
+    """A level's panorama and band widths and each camera's corner at it;
+    `corners` (level-0 x offsets, one per band) default to the layout's."""
+    pw, _, bw, lvl_corners = _level_geom(layout, level)
+    if corners is not None:
+        lvl_corners = [c // (1 << level) for c in corners]
+    return pw, bw, lvl_corners
+
+
 def place_bands(bands: torch.Tensor, layout: BandLayout, level: int,
                 corners=None):
     """Sum per-camera bands into the panorama at their static corners, in
     camera order. bands: [N, ..., h_l, bw_l] -> [..., h_l, pw_l], a new
     tensor. `corners` (level-0 x offsets, one per band) default to the
     layout's; a camera shard passes its own cameras' (parallel/shard.py)."""
-    pw, _, bw, lvl_corners = _level_geom(layout, level)
-    if corners is not None:
-        lvl_corners = [c // (1 << level) for c in corners]
+    pw, bw, lvl_corners = _placement(layout, level, corners)
     pano = bands.new_zeros(tuple(bands.shape[1:-1]) + (pw,))
     for i, corner in enumerate(lvl_corners):
         for px, bx, wseg in _segments(corner, bw, pw, layout.wrap):
@@ -117,31 +125,31 @@ def weighted_levels(bands: torch.Tensor, weight_pyr: Sequence[torch.Tensor],
                     corners=None):
     """The panorama's Laplacian levels: each camera's Laplacian pyramid
     times its weight pyramid, in the storage dtype, placed at its corner
-    (`corners` as in place_bands)."""
-    dt = storage_dtype(precision)
-    lap = laplacian_pyramid(bands, layout.num_bands, precision)
-    return [place_bands(lap[lvl] * weight_pyr[lvl].to(dt), layout, lvl,
-                        corners) for lvl in range(layout.num_bands + 1)]
+    (`corners` as in place_bands). bands: f32 [N, C, bandH, bandW]. On
+    the card the kernels of blend/levels.py, one down and one lap_place
+    launch a level; on the CPU their plain versions, which equal
+    laplacian_pyramid, the product with weight_pyr[lvl].to(storage
+    dtype) and place_bands."""
+    nb = layout.num_bands
+    gauss = [bands]
+    for _ in range(nb):
+        gauss.append(down(gauss[-1], precision))
+    return [lap_place(gauss[lvl], gauss[lvl + 1] if lvl < nb else None,
+                      weight_pyr[lvl], layout, lvl, corners, precision)
+            for lvl in range(nb + 1)]
 
 
 def collapse_levels(acc: Sequence[torch.Tensor], precision: str = "highest",
                     valid=None) -> torch.Tensor:
     """Panorama Laplacian levels -> pano f32 [C, pano_h, pano_w]: each
     level's sum in f32, stored between levels in the blend's storage
-    dtype, then masked by `valid`."""
-    bf16 = precision == "bf16"
-    dt = storage_dtype(precision)
-    levels = len(acc) - 1
-    out = acc[-1]
-    for lvl in range(levels - 1, -1, -1):
-        out = acc[lvl].to(torch.float32) + pyr_up(
-            out, acc[lvl].shape[-2], acc[lvl].shape[-1], precision,
-            out_dtype=torch.float32)
-        if bf16 and lvl > 0:
-            out = out.to(dt)
-    out = out.to(torch.float32)
-    if valid is not None:
-        out = out * valid[None]
+    dtype, then masked by `valid`; one collapse launch a level below the
+    top (blend/levels.py)."""
+    *lower, out = acc
+    if not lower:
+        return collapse(out, None, precision, True, valid)
+    for lvl in range(len(lower) - 1, -1, -1):
+        out = collapse(lower[lvl], out, precision, lvl == 0, valid)
     return out
 
 

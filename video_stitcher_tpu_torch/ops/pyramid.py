@@ -5,7 +5,8 @@ pyrUp semantics): 5-tap [1 4 6 4 1]/16 separable Gaussian with
 BORDER_REFLECT_101 and even-phase decimation; pyrUp zero-stuffs and
 convolves with the same kernel times 4. Each axis pass is a banded map
 (built as the JAX package builds its matrices) applied through its taps,
-in f32; the "bf16" precision stores every pass's result in bfloat16.
+in f32; the "bf16" precision stores every pass's result in bfloat16. The
+blend's kernels (blend/levels.py) read the same tap tables.
 """
 
 from __future__ import annotations

@@ -40,6 +40,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from video_stitcher_tpu_torch.blend import levels
 from video_stitcher_tpu_torch.calib.state import CalibState
 from video_stitcher_tpu_torch.ops.remap_strips import remap_strips
 from video_stitcher_tpu_torch.ops.resize import keeping_taps
@@ -171,6 +172,12 @@ def no_collection():
                 gc.enable()
 
 
+#: the kernel wrappers whose launches a replay counts: K1 and the
+#: blend's kernels (each counts a launch recorded into a capture in
+#: ``.captured``, a replay adds its captured launches to ``.launches``)
+COUNTED = (remap_strips, *levels.KERNELS)
+
+
 class Program:
     """One unit of device work: its input buffers (a list of trees),
     `fn(*inputs)` over them and, on the card, the CUDA graph of `fn`
@@ -192,8 +199,9 @@ class Program:
         #: the cached tables and constants the graph reads, held so that
         #: none is freed
         self.kept: list = []
-        #: K1 launches one replay makes (captured into the graph)
-        self.k1_launches = 0
+        #: the launches one replay makes (captured into the graph), by
+        #: counted wrapper (COUNTED)
+        self.launch_counts: Dict[Callable, int] = {}
         #: seconds of the warm-up and capture; bytes the capture reserved
         #: for the graph's private pool (its intermediates and outputs)
         self.capture_s = 0.0
@@ -220,7 +228,7 @@ class Program:
         with torch.cuda.device(self.device), torch.cuda.stream(self.stream), \
                 keeping_taps(self.kept):
             self._run()
-            before = remap_strips.captured
+            before = [k.captured for k in COUNTED]
             with no_collection(), torch.cuda.graph(
                     graph, stream=self.stream,
                     capture_error_mode="thread_local"):
@@ -228,7 +236,8 @@ class Program:
                 self.output = self._run()
             self.pool_bytes = torch.cuda.memory_reserved(
                 self.device) - reserved
-        self.k1_launches = remap_strips.captured - before
+        self.launch_counts = {k: k.captured - b
+                              for k, b in zip(COUNTED, before)}
         self.graph = graph
         caller.wait_stream(self.stream)
 
@@ -265,8 +274,19 @@ class Program:
                 if t.is_cuda:
                     t.record_stream(self.stream)
             caller.wait_stream(self.stream)
-        remap_strips.launches += self.k1_launches
+        for kernel, n in self.launch_counts.items():
+            kernel.launches += n
         return self.output
+
+    @property
+    def k1_launches(self) -> int:
+        """K1's launches one replay makes."""
+        return self.launch_counts.get(remap_strips, 0)
+
+    @property
+    def blend_launches(self) -> int:
+        """The blend kernels' launches one replay makes."""
+        return sum(self.launch_counts.get(k, 0) for k in levels.KERNELS)
 
 
 def key_name(key: Key) -> str:
